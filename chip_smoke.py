@@ -8,10 +8,13 @@ NVIDIA GPU:
 2. Build: the Hopper kernels in ``sparse_linear_tpu_torch/csrc`` are built
    with nvcc from the checkout's sources.
 3. Kernel parity: each kernel against its plain PyTorch version on the card,
-   at the shapes the main path uses and at harder ones (unaligned,
-   rectangular, 3D with +-46,656 offsets).  Max relative error
+   at the shapes the main paths use and at harder ones (unaligned,
+   rectangular, 3D with +-46,656 offsets; for WELL a 3,000,000 x 2,000,000
+   matrix with skewed rows).  Max relative error
    max|y - y_plain| / max|y_plain| <= 1e-5 in f32 and 1e-12 in f64 for the
-   SpMV kernel, <= 1e-4 for 50 chained f32 steps.
+   SpMV and SpMM kernels, <= 1e-4 for 50 chained f32 steps; the f64 WELL
+   SpMV also meets ||y - y_csr|| / ||y_csr|| <= 1e-13 against the plain CSR
+   SpMV at 1448**2.
 4. Main path at full size, with the kernels' launch counts set to 0 before
    and read after: 2048**2 Poisson triples on the card -> from_triples ->
    tocsr -> check_matrix -> csr_to_dia; the top of the spectrum by power
@@ -21,6 +24,15 @@ NVIDIA GPU:
 5. Times: each kernel and its plain version from CUDA events (median of 24,
    L2 flushed before each call), with GB/s, beside the card's name and
    power limit.
+6. Slice-2 main path at full size, with the WELL kernels' launch counts set
+   to 0 before and read after: the 2048**2 triples with their unknowns
+   relabelled by a seeded permutation (an unstructured numbering) ->
+   from_triples -> tocsr -> check_matrix -> recommend_format ("well") ->
+   to_fast_format; CG in f64 to 1e-10 through W @ x, with the true residual
+   through the plain CSR SpMV <= 1e-9; a 16-RHS f64 block through
+   well_spmm_planes against the plain version; the staged SpGEMM A @ A of
+   the permuted 1024**2 operator against the sort-based one (identical
+   pattern, values within 1e-12); the peak device memory.
 
 Prints one JSON line of the kernels, then as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -41,7 +53,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SPMV_SOURCE = "sparse_linear_tpu_torch/csrc/dia_spmv.cu"
+WELL_SOURCE = "sparse_linear_tpu_torch/csrc/well_spmv.cu"
 PALLAS = "sparse_linear_tpu/kernels/spmv_pallas.py"
+PALLAS_WELL = "sparse_linear_tpu/kernels/spmv_well.py"
+PALLAS_WELL64 = "sparse_linear_tpu/kernels/spmv_well64.py"
 
 
 def require(cond, msg):
@@ -85,16 +100,60 @@ def main() -> None:
         dia_spmv_chain,
         dia_spmv_kernel,
     )
+    from sparse_linear_tpu_torch.kernels.spmv_well import (
+        well_spmm,
+        well_spmm_planes,
+        well_spmm_planes_plain,
+        well_spmv,
+        well_spmv_plain,
+    )
+    from sparse_linear_tpu_torch.kernels.spmv_well64 import csr_to_well64
+    from sparse_linear_tpu_torch.ops.spgemm import (
+        spgemm,
+        spgemm_apply_well,
+        spgemm_plan_well,
+    )
     from sparse_linear_tpu_torch.solve.cg import cg
     from sparse_linear_tpu_torch.utils.grids import poisson_2d, poisson_3d
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    # the WELL phases draw from their own stream, so that the slice-1
+    # phases see the same random numbers as before them
+    wgen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     f32, f64 = torch.float32, torch.float64
 
-    def randn(n, dtype):
-        return torch.randn(n, dtype=dtype, device=dev, generator=gen)
+    def randn(n, dtype, generator=gen):
+        return torch.randn(n, dtype=dtype, device=dev, generator=generator)
+
+    def poisson_triples(g, generator=gen):
+        """The g**2 5-point operator as shuffled f64 triples on the card;
+        the diagonal is split into two duplicates of 2 that dedup-by-sum
+        must restore to 4."""
+        n = g * g
+        i = torch.arange(n, dtype=torch.int32, device=dev)
+        ix = i % g
+        rows, cols = [i, i], [i, i]
+        for off, ok in ((-g, i >= g), (g, i < n - g), (-1, ix > 0),
+                        (1, ix < g - 1)):
+            rows.append(i[ok])
+            cols.append(i[ok] + off)
+        vals = torch.cat([torch.full((2 * n,), 2.0, dtype=f64, device=dev),
+                          torch.full((sum(r.shape[0] for r in rows[2:]),),
+                                     -1.0, dtype=f64, device=dev)])
+        rows, cols = torch.cat(rows), torch.cat(cols)
+        perm = torch.randperm(rows.shape[0], device=dev, generator=generator)
+        return rows[perm], cols[perm], vals[perm]
+
+    def permuted_csr(g, dtype):
+        """The g**2 5-point operator with its unknowns relabelled by a
+        seeded permutation (rows and columns through the same one): the
+        spectrum of the stencil, the numbering of an unstructured mesh."""
+        coo = poisson_2d(g, dtype=dtype, device=dev).tocoo()
+        perm = torch.randperm(g * g, device=dev, generator=wgen)
+        return st.from_triples((g * g, g * g), perm[coo.row.long()],
+                               perm[coo.col.long()], coo.data).tocsr()
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
@@ -170,6 +229,88 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # WELL kernels C (SpMV) and D (SpMM) against their plain versions
+    def check_well_spmv(label, w):
+        x = randn(w.shape[1], w.dtype, wgen)
+        y = well_spmv(w, x)
+        ref = well_spmv_plain(w, x)
+        torch.cuda.synchronize()
+        err, rel = max_err(y, ref)
+        print(f"phase 3 parity well_spmv {label}: shape {w.shape} capacity "
+              f"{w.cols.shape[0]} fill {w.fill:.4f} c_max {w.c_max} max rel "
+              f"err {rel:.3e} (max abs {err:.3e}, tol {tol[w.dtype]:.0e})",
+              flush=True)
+        require(rel <= tol[w.dtype], f"well_spmv {label} disagrees: {rel}")
+        parity_abs[f"well_spmv {label}"] = err
+        return x, y
+
+    def check_well_spmm(label, w, m, column_major=False):
+        xp = randn(m * w.shape[1], w.dtype, wgen).reshape(m, w.shape[1])
+        if column_major:
+            y = well_spmm(w, xp.T.contiguous()).T
+        else:
+            y = well_spmm_planes(w, xp)
+        # the plain version four planes at a time bounds its memory
+        ref = torch.cat([well_spmm_planes_plain(w, xp[t:t + 4])
+                         for t in range(0, m, 4)])
+        torch.cuda.synchronize()
+        err, rel = max_err(y, ref)
+        form = "well_spmm (column-major)" if column_major else \
+            "well_spmm_planes"
+        print(f"phase 3 parity {form} {label} m={m}: max rel err {rel:.3e} "
+              f"(max abs {err:.3e}, tol {tol[w.dtype]:.0e})", flush=True)
+        require(rel <= tol[w.dtype], f"{form} {label} m={m} disagrees: {rel}")
+        parity_abs[f"well_spmm {label} m={m}"
+                   + (" column-major" if column_major else "")] = err
+
+    for dtype in (f32, f64):
+        w = st.csr_to_well(permuted_csr(2048, dtype))
+        check_well_spmv(f"permuted 2048^2 {dtype}", w)
+        for m in ((16, 5) if dtype == f32 else (16,)):
+            check_well_spmm(f"permuted 2048^2 {dtype}", w, m)
+        check_well_spmm(f"permuted 2048^2 {dtype}", w, 16, column_major=True)
+        del w
+
+    # K7's contract: f64 WELL against f64 CSR SpMV, norm-wise
+    csr = poisson_2d(1448, dtype=f64, device=dev)
+    w = csr_to_well64(csr)
+    x, y = check_well_spmv("poisson_2d(1448) csr_to_well64", w)
+    ref = st.spmv(csr, x)
+    k7_rel = float(torch.linalg.vector_norm(y - ref)
+                   / torch.linalg.vector_norm(ref))
+    print(f"phase 3 parity well_spmv64 poisson_2d(1448) against CSR spmv: "
+          f"||y - y_csr|| / ||y_csr|| {k7_rel:.3e} (tol 1e-13)", flush=True)
+    require(k7_rel <= 1e-13, f"well_spmv64 misses 1e-13: {k7_rel}")
+    del csr, w, x, y, ref
+
+    # skewed rectangular: 0-64 entries a row, ~1 % of rows empty, four rows
+    # of 4096 entries that pad their slices
+    nr_s, nc_s = 3_000_000, 2_000_000
+    lens = torch.randint(1, 65, (nr_s,), device=dev, generator=wgen)
+    lens[torch.rand(nr_s, device=dev, generator=wgen) < 0.01] = 0
+    lens[torch.randint(0, nr_s, (4,), device=dev, generator=wgen)] = 4096
+    rows = torch.repeat_interleave(
+        torch.arange(nr_s, dtype=torch.int32, device=dev), lens)
+    cols = torch.randint(0, nc_s, rows.shape, dtype=torch.int32, device=dev,
+                         generator=wgen)
+    skew = st.from_triples((nr_s, nc_s), rows, cols,
+                           randn(rows.shape[0], f32, wgen)).tocsr()
+    del rows, cols, lens
+    row_len = skew.indptr[1:] - skew.indptr[:-1]
+    n_empty, longest = int((row_len == 0).sum()), int(row_len.max())
+    print(f"phase 3 skewed {nr_s}x{nc_s} f32: nnz {skew.nnz}, {n_empty} "
+          f"empty rows, longest row {longest}", flush=True)
+    # (duplicate columns of a long row are summed, so it may come out a
+    # few entries short of 4096)
+    require(n_empty > 0 and longest > 64, "skewed matrix lost its shape")
+    w = st.csr_to_well(skew)
+    del skew, row_len
+    check_well_spmv(f"skewed {nr_s}x{nc_s} f32", w)
+    check_well_spmm(f"skewed {nr_s}x{nc_s} f32", w, 5)
+    del w
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------- 4. main path, full size
     g = 2048
     n = g * g
@@ -178,22 +319,7 @@ def main() -> None:
     dia_spmv_chain.launches = 0
     t_main = time.perf_counter()
 
-    # the 5-point operator as shuffled triples on the card; the diagonal is
-    # split into two duplicates of 2 that dedup-by-sum must restore to 4
-    i = torch.arange(n, dtype=torch.int32, device=dev)
-    ix = i % g
-    rows, cols = [i, i], [i, i]
-    for off, ok in ((-g, i >= g), (g, i < n - g), (-1, ix > 0),
-                    (1, ix < g - 1)):
-        rows.append(i[ok])
-        cols.append(i[ok] + off)
-    vals = torch.cat([torch.full((2 * n,), 2.0, dtype=f64, device=dev),
-                      torch.full((sum(r.shape[0] for r in rows[2:]),), -1.0,
-                                 dtype=f64, device=dev)])
-    rows, cols = torch.cat(rows), torch.cat(cols)
-    perm = torch.randperm(rows.shape[0], device=dev, generator=gen)
-    rows, cols, vals = rows[perm], cols[perm], vals[perm]
-    del perm, i, ix
+    rows, cols, vals = poisson_triples(g)
     n_triples = rows.shape[0]
     t0 = time.perf_counter()
     coo = st.from_triples((n, n), rows, cols, vals)
@@ -337,8 +463,150 @@ def main() -> None:
                   f"{50 * nbytes / pc_ms / 1e6:.1f} GB/s)", flush=True)
         del a, x
 
+    # kernels C and D on the permuted 2048**2 operator.  Bytes: the stored
+    # slots (value + int32 column) + slice_ptr + x + y, for D the A stream
+    # once plus m (x + y); nnz (itemsize + 4) is printed beside them so the
+    # padding's share shows.
+    m_rhs = 16
+    for dtype in (f32, f64):
+        w = st.csr_to_well(permuted_csr(g, dtype))
+        item = w.vals.element_size()
+        a_bytes = w.cols.shape[0] * (item + 4) + w.slice_ptr.numel() * 8
+        nnz_bytes = int((w.vals != 0).sum()) * (item + 4)
+        x = randn(n, dtype, wgen)
+        nbytes = a_bytes + 2 * n * item
+        k_ms, p_ms = in_turns(lambda: well_spmv_plain(w, x),
+                              lambda: well_spmv(w, x))
+        times[f"well_spmv {dtype}"] = (k_ms, p_ms)
+        print(f"phase 5 time [{card}] well_spmv permuted 2048^2 {dtype}: "
+              f"kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} GB/s), plain "
+              f"{p_ms:.4f} ms ({nbytes / p_ms / 1e6:.1f} GB/s), "
+              f"{nbytes / 1e6:.1f} MB per call (slots {a_bytes / 1e6:.1f} MB,"
+              f" nnz * (itemsize + 4) {nnz_bytes / 1e6:.1f} MB)", flush=True)
+        xp = randn(m_rhs * n, dtype, wgen).reshape(m_rhs, n)
+        xc = xp.T.contiguous()
+        mbytes = a_bytes + 2 * m_rhs * n * item
+        k_ms, p_ms = in_turns(lambda: well_spmm_planes_plain(w, xp),
+                              lambda: well_spmm_planes(w, xp))
+        c_ms = statistics.median(samples_ms(lambda: well_spmm(w, xc))
+                                 + samples_ms(lambda: well_spmm(w, xc)))
+        times[f"well_spmm {dtype}"] = (k_ms, p_ms)
+        print(f"phase 5 time [{card}] well_spmm_planes permuted 2048^2 "
+              f"{dtype} m={m_rhs} (X copied to (nc, m), then kernel D): "
+              f"{k_ms:.4f} ms ({mbytes / k_ms / 1e6:.1f} GB/s, "
+              f"{k_ms / m_rhs:.4f} ms/RHS), plain {p_ms:.4f} ms "
+              f"({mbytes / p_ms / 1e6:.1f} GB/s); column-major well_spmm "
+              f"(kernel D alone) {c_ms:.4f} ms ({mbytes / c_ms / 1e6:.1f} "
+              f"GB/s); {mbytes / 1e6:.1f} MB per call", flush=True)
+        del w, x, xp, xc
+    torch.cuda.empty_cache()
+
+    # ------------------------------------ 6. slice-2 main path, full size
+    torch.cuda.reset_peak_memory_stats(dev)
+    well_spmv.launches = 0
+    well_spmm.launches = 0
+    t_main = time.perf_counter()
+    rows, cols, vals = poisson_triples(g, wgen)
+    perm = torch.randperm(n, device=dev, generator=wgen).to(torch.int32)
+    rows, cols = perm[rows], perm[cols]
+    del perm
+    n_triples = rows.shape[0]
+    t0 = time.perf_counter()
+    csr = st.from_triples((n, n), rows, cols, vals).tocsr()
+    del rows, cols, vals
+    require(st.check_matrix(csr), "check_matrix (permuted)")
+    kind = st.recommend_format(csr)
+    require(kind == "well", f"recommend_format said {kind!r}, not 'well'")
+    w = st.to_fast_format(csr)
+    torch.cuda.synchronize()
+    assemble_s = time.perf_counter() - t0
+    require(isinstance(w, st.WELL) and w.dtype == f64, "to_fast_format")
+    print(f"phase 6 assemble: {n_triples} permuted triples -> CSR nnz "
+          f"{csr.nnz} -> recommend_format {kind!r} -> WELL capacity "
+          f"{w.cols.shape[0]} fill {w.fill:.4f} c_max {w.c_max} in "
+          f"{assemble_s:.3f} s", flush=True)
+    require(csr.nnz == 5 * n - 4 * g, f"permuted operator nnz {csr.nnz}")
+
+    b = randn(n, f64, wgen)
+    t0 = time.perf_counter()
+    res = cg(w.__matmul__, b, tol=1e-10, maxiter=40_000)
+    torch.cuda.synchronize()
+    cg_s = time.perf_counter() - t0
+    bnorm = float(torch.linalg.vector_norm(b))
+    true_res = float(torch.linalg.vector_norm(b - st.spmv(csr, res.x))) / bnorm
+    cg_res = float(res.residual_norm) / bnorm
+    well_its = res.iterations
+    print(f"phase 6 cg f64 permuted 2048^2 through WELL: {well_its} "
+          f"iterations (DIA, phase 4: {cg_its}), recursive residual "
+          f"{cg_res:.3e}, true residual (CSR spmv) {true_res:.3e} (tol 1e-9), "
+          f"{cg_s:.3f} s, {cg_s / max(well_its, 1) * 1e3:.4f} ms/iteration",
+          flush=True)
+    require(res.converged, "cg (WELL) did not converge")
+    require(bool(torch.isfinite(res.x).all()), "cg (WELL) returned non-finite")
+    require(true_res <= 1e-9, f"true residual (WELL) {true_res}")
+    del b, res
+
+    xp = randn(m_rhs * n, f64, wgen).reshape(m_rhs, n)
+    t0 = time.perf_counter()
+    y = well_spmm_planes(w, xp)
+    torch.cuda.synchronize()
+    spmm_s = time.perf_counter() - t0
+    ref = torch.cat([well_spmm_planes_plain(w, xp[t:t + 4])
+                     for t in range(0, m_rhs, 4)])
+    _, spmm_rel = max_err(y, ref)
+    print(f"phase 6 well_spmm_planes f64 m={m_rhs}: {spmm_s * 1e3:.3f} ms "
+          f"(first call), max rel err against plain {spmm_rel:.3e} (tol "
+          f"1e-12)", flush=True)
+    require(y.shape == (m_rhs, n) and spmm_rel <= 1e-12, "16-RHS block")
+    del xp, y, ref, w, csr
+
+    # staged SpGEMM A @ A of the permuted 1024**2 operator: three launches
+    # of kernel C per numeric phase, against the sort-based form
+    a1 = permuted_csr(1024, f64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = spgemm_plan_well(a1, a1)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = spgemm_apply_well(plan, a1.data, a1.data)
+    torch.cuda.synchronize()
+    numeric_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c_ref = spgemm(a1, a1)
+    torch.cuda.synchronize()
+    sort_s = time.perf_counter() - t0
+    same = (torch.equal(c.indptr.long(), c_ref.indptr.long())
+            and torch.equal(c.indices, c_ref.indices))
+    _, sg_rel = max_err(c.data, c_ref.data)
+    print(f"phase 6 staged spgemm permuted 1024^2 A @ A: {plan.t_products} "
+          f"products -> nnz {plan.nnz_out}; plan {plan_s:.3f} s, numeric "
+          f"{numeric_s * 1e3:.3f} ms (3 well_spmv launches), sort-based "
+          f"spgemm {sort_s * 1e3:.3f} ms; same pattern {same}, max rel err "
+          f"{sg_rel:.3e} (tol 1e-12)", flush=True)
+    require(same, "staged spgemm pattern differs from the sort-based one")
+    require(sg_rel <= 1e-12, f"staged spgemm values disagree: {sg_rel}")
+    require(st.check_matrix(c), "check_matrix (spgemm)")
+    del a1, plan, c, c_ref
+    torch.cuda.synchronize()
+    main2_s = time.perf_counter() - t_main
+    launches["well_spmv"] = well_spmv.launches
+    launches["well_spmm"] = well_spmm.launches
+    peak2_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"phase 6 main path: {main2_s:.3f} s wall, launches "
+          f"well_spmv {launches['well_spmv']} well_spmm "
+          f"{launches['well_spmm']}, peak device memory {peak2_gb:.3f} GB",
+          flush=True)
+    require(launches["well_spmv"] >= well_its + 3,
+            f"well_spmv launches {launches['well_spmv']} < {well_its} "
+            "iterations + 3")
+    require(launches["well_spmm"] >= 1, "main path launched no well_spmm")
+    require(peak2_gb < 5.0, f"peak device memory {peak2_gb} GB")
+
     k32, p32 = times[f"dia_spmv {f32}"]
     kc, pc = times["dia_spmv_chain"]
+    kw, pw = times[f"well_spmv {f64}"]
+    km, pm = times[f"well_spmm {f64}"]
     print(json.dumps({"kernels": [
         {"name": "dia_spmv", "route": "cuda", "source": SPMV_SOURCE,
          "replaces": f"{PALLAS}:133",
@@ -353,6 +621,21 @@ def main() -> None:
          "max_abs_err": chain_abs,
          "ms": kc, "plain_ms": pc,
          "shape": "poisson_2d(2048) f32, k=50 per launch, L2 flushed"},
+        {"name": "well_spmv", "route": "cuda", "source": WELL_SOURCE,
+         "replaces": f"{PALLAS_WELL}:116",
+         "also_replaces": [f"{PALLAS_WELL64}:195"],
+         "launches": launches["well_spmv"],
+         "max_abs_err": parity_abs[f"well_spmv permuted 2048^2 {f64}"],
+         "ms": kw, "plain_ms": pw,
+         "shape": "permuted poisson 2048^2 f64, L2 flushed"},
+        {"name": "well_spmm", "route": "cuda", "source": WELL_SOURCE,
+         "replaces": f"{PALLAS_WELL}:335",
+         "also_replaces": [f"{PALLAS_WELL}:385", f"{PALLAS_WELL64}:284"],
+         "launches": launches["well_spmm"],
+         "max_abs_err": parity_abs[f"well_spmm permuted 2048^2 {f64} m=16"],
+         "ms": km, "plain_ms": pm,
+         "shape": "permuted poisson 2048^2 f64, m=16 plane-major, "
+                  "L2 flushed"},
     ], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,18 +2,22 @@
 
 A second package beside the JAX one, laid out the same way so that each
 module's counterpart is found by path, and held against it by parity tests.
-It imports torch and never JAX.  This slice covers the iterative-solve path:
+It imports torch and never JAX.  It covers the iterative-solve path on
+structured (DIA) and unstructured (WELL) operators:
 
-  * formats/ — COO/CSR/CSC frozen dataclasses of tensors, DIA, invariant
+  * formats/ — COO/CSR/CSC frozen dataclasses of tensors, DIA, WELL (a
+    sliced ELL for unstructured patterns), format selection, invariant
     checker.
-  * ops/     — construction (sort + dedup-by-sum), CSR/CSC/COO SpMV/SpMM.
-  * kernels/ — plain PyTorch DIA SpMV/SpMM, and the hand-written Hopper
-    (sm_90a) CUDA kernels for DIA SpMV and the one-launch SpMV chain,
-    built with nvcc at first use.
+  * ops/     — construction (sort + dedup-by-sum), CSR/CSC/COO SpMV/SpMM,
+    SpGEMM (sort-based and staged through WELL SpMVs).
+  * kernels/ — plain PyTorch versions of every kernel, and the hand-written
+    Hopper (sm_90a) CUDA kernels for DIA SpMV, the one-launch DIA SpMV
+    chain, WELL SpMV and WELL SpMM (f32 and f64), built with nvcc at first
+    use.
   * solve/   — conjugate gradients.
   * utils/   — 1D/2D/3D Poisson operators.
-  * interop/ — carrying matrices across from the JAX package as numpy
-    arrays.
+  * interop/ — scipy.sparse / raw-array interchange, and carrying matrices
+    across from the JAX package as numpy arrays.
 
 Every constructor that makes tensors from nothing takes ``device=``; the
 rest follow the device of their inputs.
@@ -29,9 +33,12 @@ from sparse_linear_tpu_torch.formats.matrix import (
     from_triples,
     zeros,
 )
+from sparse_linear_tpu_torch.formats.select import recommend_format, to_fast_format
 from sparse_linear_tpu_torch.formats.validate import InvariantError, check_matrix
+from sparse_linear_tpu_torch.formats.well import WELL, csr_to_well
 from sparse_linear_tpu_torch.ops.build import from_dense, trim
 from sparse_linear_tpu_torch.ops.linalg import axpy, scale, spmm, spmv
+from sparse_linear_tpu_torch.ops.spgemm import spgemm
 
 __version__ = "0.1.0"
 
@@ -39,11 +46,15 @@ __all__ = [
     "COO",
     "CSR",
     "CSC",
+    "WELL",
     "InvariantError",
     "check_matrix",
     "from_triples",
     "from_dense",
     "trim",
+    "csr_to_well",
+    "recommend_format",
+    "to_fast_format",
     "diag",
     "eye",
     "zeros",
@@ -51,5 +62,6 @@ __all__ = [
     "scale",
     "spmv",
     "spmm",
+    "spgemm",
     "dtypes",
 ]

@@ -12,8 +12,9 @@ past the valid entries are accepted as the JAX package defines them: padded
 COO entries carry sentinel coordinates (row == nrows, col == ncols, value
 0); padded CSR/CSC entries lie past ``indptr[-1]``.
 
-Sparse @ sparse (SpGEMM) and the elementwise union (``+``/``-``) are not
-ported yet: they raise ``NotImplementedError``.
+``@`` and ``*`` between two sparse matrices are SpGEMM
+(:func:`ops.spgemm.spgemm`), as in the JAX package.  The elementwise union
+(``+``/``-``) is not ported yet: it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,13 +48,14 @@ def _shape2(shape):
 
 class _MatrixOpsMixin(TensorFields):
     """Operator sugar shared by all matrix formats: ``@`` is the
-    matrix-vector / matrix-dense product, ``*`` by a scalar scales."""
+    matrix-vector / matrix-dense product, ``*`` by a scalar scales, and both
+    with a sparse operand are SpGEMM."""
 
     def __matmul__(self, other):
-        from sparse_linear_tpu_torch.ops import linalg
+        from sparse_linear_tpu_torch.ops import linalg, spgemm
 
         if isinstance(other, _MatrixOpsMixin):
-            raise NotImplementedError(_NOT_PORTED.format(op="@ (SpGEMM)"))
+            return spgemm.spgemm(self, other)
         if not isinstance(other, torch.Tensor):
             other = torch.as_tensor(np.asarray(other), device=self.device)
         if other.ndim == 1:
@@ -61,10 +63,10 @@ class _MatrixOpsMixin(TensorFields):
         return linalg.spmm(self, other)
 
     def __mul__(self, other):
-        from sparse_linear_tpu_torch.ops import linalg
+        from sparse_linear_tpu_torch.ops import linalg, spgemm
 
         if isinstance(other, _MatrixOpsMixin):
-            raise NotImplementedError(_NOT_PORTED.format(op="* (SpGEMM)"))
+            return spgemm.spgemm(self, other)
         return linalg.scale(self, other)
 
     def __rmul__(self, other):

@@ -1,6 +1,7 @@
 """Build and load the Hopper kernels in ``csrc/`` at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+``nvcc`` compiles every ``csrc/*.cu`` to an object, one process per source,
+all started together, and links them into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds), for the H100's
 ``sm_90a`` target, into ``sparse_linear_tpu_torch/_build/``.  The library's
 name carries a hash of the sources and the flags, so an edited source is
@@ -26,8 +27,8 @@ __all__ = ["NVCC_FLAGS", "build_dir", "check", "find_nvcc", "library_path",
            "load_library", "sources"]
 
 _PKG = Path(__file__).resolve().parent.parent
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -35,6 +36,19 @@ _SPMV_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_double,
               ctypes.c_int, _P]
 _CHAIN_ARGS = [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int,
                ctypes.c_double, ctypes.c_int, _P]
+_WELL_SPMV_ARGS = [_P, _P, _P, _P, _P, _I64, ctypes.c_int, _P]
+_WELL_SPMM_ARGS = [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_int,
+                   _P]
+_SIGNATURES = {
+    "slt_dia_spmv_f32": _SPMV_ARGS,
+    "slt_dia_spmv_f64": _SPMV_ARGS,
+    "slt_dia_chain_f32": _CHAIN_ARGS,
+    "slt_dia_chain_f64": _CHAIN_ARGS,
+    "slt_well_spmv_f32": _WELL_SPMV_ARGS,
+    "slt_well_spmv_f64": _WELL_SPMV_ARGS,
+    "slt_well_spmm_f32": _WELL_SPMM_ARGS,
+    "slt_well_spmm_f64": _WELL_SPMM_ARGS,
+}
 
 
 def build_dir() -> Path:
@@ -66,6 +80,22 @@ def find_nvcc() -> str | None:
     return None
 
 
+def _run(cmds) -> None:
+    """Run the commands in parallel; raise with the output of the first
+    that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, code, out = failed
+        raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{out}")
+
+
 def _compile(out: Path) -> None:
     nvcc = find_nvcc()
     if nvcc is None:
@@ -75,16 +105,18 @@ def _compile(out: Path) -> None:
             "sparse_linear_tpu_torch kernels"
         )
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in sources()]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for obj, src in zip(objs, sources())])
+        _run([[nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
 
 
 @functools.cache
@@ -94,11 +126,8 @@ def load_library() -> ctypes.CDLL:
     if not path.is_file():
         _compile(path)
     lib = ctypes.CDLL(str(path))
-    for name in ("slt_dia_spmv_f32", "slt_dia_spmv_f64"):
-        getattr(lib, name).argtypes = _SPMV_ARGS
-        getattr(lib, name).restype = ctypes.c_int
-    for name in ("slt_dia_chain_f32", "slt_dia_chain_f64"):
-        getattr(lib, name).argtypes = _CHAIN_ARGS
+    for name, argtypes in _SIGNATURES.items():
+        getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     lib.slt_error_string.argtypes = [ctypes.c_int]
     lib.slt_error_string.restype = ctypes.c_char_p

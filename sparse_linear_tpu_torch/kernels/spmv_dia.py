@@ -59,11 +59,11 @@ def _flat(name, dia, x):
     return x, None
 
 
-def _kernel_dtype(name, dtype) -> None:
+def _kernel_dtype(name, dtype, fmt="DIA") -> None:
     if dtype.is_complex:
         raise TypeError(
-            f"{name}: complex DIA on CUDA is not ported yet (ROADMAP.md "
-            "queue 1 item 10: complex instantiations of the DIA kernels); "
+            f"{name}: complex {fmt} on CUDA is not ported yet (ROADMAP.md "
+            f"queue 1 item 10: complex instantiations of the {fmt} kernels); "
             "complex runs on CPU tensors through the plain version"
         )
     if dtype not in _KERNEL_DTYPES:

@@ -1,0 +1,212 @@
+"""SpMV / SpMM for WELL storage: wrappers around ``csrc/well_spmv.cu``.
+
+Counterpart of :mod:`sparse_linear_tpu.kernels.spmv_well`, with the same
+public names.
+
+* :func:`well_spmv` (kernel C, ``well_spmv_kernel<T>``) replaces
+  ``_kernel`` / ``_well_spmv_real`` and, in f64, the double-float
+  ``_kernel_df64`` / ``_well_spmv_df64`` of ``spmv_well64``.
+* :func:`well_spmm_planes` and :func:`well_spmm` (kernel D,
+  ``well_spmm_kernel<T>``) replace the resident-X ``_spmm_kernel`` /
+  ``_spmm_resident`` and the windowed ``_spmm_kernel_win`` /
+  ``_spmm_windowed`` (one op with two memory plans on the TPU) and, in
+  f64, ``_kernel_spmm_df64`` / ``_well_spmm_df64``.  Kernel D reads X as
+  (nc, m) row-major, the layout of the column-major ``well_spmm``, where
+  the m values one slot gathers are contiguous; ``well_spmm_planes``
+  copies its (m, nc) planes to that layout first (on an NVIDIA H100 80GB
+  HBM3 at 700.00 W, permuted 2048**2 operator, m = 16, the kernel
+  gathering plane-major X took 4-7x as long as this layout plus the
+  copy).  Y is written through strides in either
+  layout.
+
+Output dtype follows the JAX package: x is cast to the matrix's dtype, and
+the result is complex when A or x is.  A wrapper takes the plain PyTorch
+version (:func:`well_spmv_plain`, :func:`well_spmm_planes_plain`: gather
+``x[cols]``, multiply by ``vals``, ``index_add_`` by row) only because its
+tensors lie on the CPU.  On CUDA tensors it launches its kernel on the
+current stream or raises; complex values on CUDA raise ``TypeError``.
+Kernel C's launches are counted in ``well_spmv.launches`` and kernel D's in
+``well_spmm.launches``, whichever wrapper launched it (plain ints; set to 0
+to reset).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sparse_linear_tpu_torch.dtypes import complex_of
+from sparse_linear_tpu_torch.formats.well import SLICE_ROWS
+from sparse_linear_tpu_torch.kernels import _build
+from sparse_linear_tpu_torch.kernels.spmv_dia import (
+    _device_of,
+    _kernel_dtype,
+    _stream,
+)
+
+__all__ = ["well_spmv", "well_spmm", "well_spmm_planes", "well_planes_width",
+           "well_spmv_plain", "well_spmm_planes_plain"]
+
+
+def _as_tensor(a, x):
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x), device=a.vals.device)
+
+
+def _out_dtype(a, x) -> torch.dtype:
+    """The JAX package's rule: x takes A's dtype; complex if either is."""
+    dtype = a.vals.dtype
+    if x.is_complex() and not dtype.is_complex:
+        return complex_of(dtype)
+    return dtype
+
+
+def _padded_rows(a) -> int:
+    return a.n_slices * SLICE_ROWS
+
+
+def well_spmv_plain(a, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel C: y = A @ x over the stored slots."""
+    dtype = _out_dtype(a, x)
+    prod = a.vals.to(dtype) * x.to(dtype)[a.cols]
+    y = torch.zeros((_padded_rows(a),), dtype=dtype, device=x.device)
+    return y.index_add_(0, a.slot_rows, prod)[: a.shape[0]]
+
+
+def well_spmm_planes_plain(a, xp: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel D, plane-major: xp (m, nc) -> (m, nr)."""
+    dtype = _out_dtype(a, xp)
+    prod = a.vals.to(dtype)[None, :] * xp.to(dtype)[:, a.cols]
+    y = torch.zeros((xp.shape[0], _padded_rows(a)), dtype=dtype,
+                    device=xp.device)
+    return y.index_add_(1, a.slot_rows, prod)[:, : a.shape[0]]
+
+
+def _check_layout(name, a) -> None:
+    """The kernels index ``slice_ptr``, ``cols``, ``vals`` and x without
+    bounds checks: hold the arrays to the layout first."""
+    n_slices = -(-a.shape[0] // SLICE_ROWS)
+    if (a.slice_ptr.dtype != torch.int64 or a.cols.dtype != torch.int32
+            or tuple(a.slice_ptr.shape) != (n_slices + 1,)
+            or a.cols.ndim != 1 or a.cols.shape != a.vals.shape
+            or not a.slots_in_bounds):
+        raise ValueError(
+            f"{name}: WELL arrays do not match the sliced layout of shape "
+            f"{a.shape}: slice_ptr {a.slice_ptr.dtype} "
+            f"{tuple(a.slice_ptr.shape)}, cols {a.cols.dtype} "
+            f"{tuple(a.cols.shape)}, vals {tuple(a.vals.shape)}"
+        )
+
+
+def well_spmv(a, x) -> torch.Tensor:
+    """y = A @ x for WELL storage."""
+    x = _as_tensor(a, x)
+    if x.ndim != 1 or x.shape[0] != a.shape[1]:
+        raise ValueError(
+            f"well_spmv: dimension mismatch {a.shape} @ {tuple(x.shape)}"
+        )
+    device = _device_of("well_spmv", a.vals, x)
+    if device.type == "cpu":
+        return well_spmv_plain(a, x)
+    name = "well_spmv"
+    dtype = _out_dtype(a, x)
+    _kernel_dtype(name, dtype, "WELL")
+    _check_layout(name, a)
+    nr = a.shape[0]
+    x = x.to(dtype).contiguous()
+    y = torch.empty((nr,), dtype=dtype, device=device)
+    if nr == 0:
+        return y
+    vals = a.vals.contiguous()
+    lib = _build.load_library()
+    fn = lib.slt_well_spmv_f32 if dtype == torch.float32 else lib.slt_well_spmv_f64
+    code = fn(a.slice_ptr.contiguous().data_ptr(),
+              a.cols.contiguous().data_ptr(), vals.data_ptr(), x.data_ptr(),
+              y.data_ptr(), nr, device.index, _stream(device))
+    _build.check(lib, code, "well_spmv launch")
+    well_spmv.launches += 1
+    return y
+
+
+well_spmv.launches = 0
+
+
+def _launch_spmm(name, a, xt, y, y_row, y_rhs) -> None:
+    """Kernel D on ``xt``, X as (nc, m), into ``y`` written through the
+    strides (y_row, y_rhs) between rows of A and right-hand sides.  X is
+    copied to row-major first unless it already is."""
+    _check_layout(name, a)
+    nr, m = a.shape[0], xt.shape[1]
+    if nr == 0 or m == 0:
+        return
+    xt = xt.contiguous()
+    device = y.device
+    vals = a.vals.contiguous()
+    lib = _build.load_library()
+    fn = lib.slt_well_spmm_f32 if y.dtype == torch.float32 else lib.slt_well_spmm_f64
+    code = fn(a.slice_ptr.contiguous().data_ptr(),
+              a.cols.contiguous().data_ptr(), vals.data_ptr(), xt.data_ptr(),
+              y.data_ptr(), nr, m, y_row, y_rhs, device.index,
+              _stream(device))
+    _build.check(lib, code, f"{name} launch")
+    well_spmm.launches += 1
+
+
+def well_planes_width(a) -> int:
+    """Plane width that :func:`well_spmm_planes` takes: ``a.shape[1]``.
+    (The JAX package's kernel may want planes padded to its window plan;
+    the port's kernel needs no padding, as the JAX function's fallback
+    without a plan.)"""
+    return int(a.shape[1])
+
+
+def well_spmm_planes(a, xp) -> torch.Tensor:
+    """Plane-major multi-RHS SpMM: ``xp`` of shape (m, nc), one RHS per
+    ROW, returns (m, nr)."""
+    xp = _as_tensor(a, xp)
+    ok_width = xp.ndim == 2 and (
+        xp.shape[1] == a.shape[1] or xp.shape[1] == well_planes_width(a)
+    )
+    if not ok_width:
+        raise ValueError(
+            f"well_spmm_planes: expected (m, {a.shape[1]}) planes (or the "
+            f"pre-padded width well_planes_width(a)), got {tuple(xp.shape)}"
+        )
+    device = _device_of("well_spmm_planes", a.vals, xp)
+    if device.type == "cpu":
+        return well_spmm_planes_plain(a, xp)
+    dtype = _out_dtype(a, xp)
+    _kernel_dtype("well_spmm_planes", dtype, "WELL")
+    xp = xp.to(dtype)
+    nr = a.shape[0]
+    y = torch.empty((xp.shape[0], nr), dtype=dtype, device=device)
+    _launch_spmm("well_spmm_planes", a, xp.T, y, 1, nr)
+    return y
+
+
+def well_spmm(a, x) -> torch.Tensor:
+    """Y = A @ X for WELL storage, X dense (nc, m), column-major: the same
+    op as :func:`well_spmm_planes` with the layout transposed on each
+    side.  On CUDA this is kernel D's own layout: it reads X (nc, m) and
+    writes Y (nr, m) with no transpose."""
+    x = _as_tensor(a, x)
+    if x.ndim == 1:
+        return well_spmv(a, x)
+    if x.ndim != 2 or x.shape[0] != a.shape[1]:
+        raise ValueError(
+            f"well_spmm: dimension mismatch {a.shape} @ {tuple(x.shape)}"
+        )
+    device = _device_of("well_spmm", a.vals, x)
+    if device.type == "cpu":
+        return well_spmm_planes_plain(a, x.T).T
+    dtype = _out_dtype(a, x)
+    _kernel_dtype("well_spmm", dtype, "WELL")
+    x = x.to(dtype)
+    m = x.shape[1]
+    y = torch.empty((a.shape[0], m), dtype=dtype, device=device)
+    _launch_spmm("well_spmm", a, x, y, m, 1)
+    return y
+
+
+well_spmm.launches = 0

@@ -1,4 +1,6 @@
-"""The port's Hopper kernels against their plain versions, on the card.
+"""The port's Hopper kernels against their plain versions, on the card:
+kernels A and B (DIA SpMV and chain) and kernels C and D (WELL SpMV and
+SpMM).
 
 Every test here needs an NVIDIA GPU and nvcc: it is marked ``cuda`` and
 skips without a card.  This file imports no JAX, so it also runs where JAX
@@ -7,8 +9,10 @@ is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerances: max |y - y_plain| / max |y_plain| <= 1e-5 in f32 and 1e-12 in
-f64.  The kernel sums the diagonals in the stored order, as the plain
-version does; only fused multiply-adds may round differently.
+f64.  The DIA kernels sum the diagonals in the stored order, as the plain
+version does; only fused multiply-adds may round differently.  The WELL
+plain versions sum with ``index_add_``, whose order on CUDA is unspecified,
+so their parity is to rounding.
 """
 
 import numpy as np
@@ -16,11 +20,30 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import sparse_linear_tpu_torch as st  # noqa: E402
 from sparse_linear_tpu_torch.formats.structured import DIA  # noqa: E402
+from sparse_linear_tpu_torch.formats.well import csr_to_well  # noqa: E402
 from sparse_linear_tpu_torch.kernels.spmv import dia_spmv  # noqa: E402
 from sparse_linear_tpu_torch.kernels.spmv_dia import (  # noqa: E402
     dia_spmv_chain,
     dia_spmv_kernel,
+)
+from sparse_linear_tpu_torch.kernels.spmv_well import (  # noqa: E402
+    well_spmm,
+    well_spmm_planes,
+    well_spmm_planes_plain,
+    well_spmv,
+    well_spmv_plain,
+)
+from sparse_linear_tpu_torch.kernels.spmv_well64 import (  # noqa: E402
+    csr_to_well64,
+    well_spmm64_planes,
+    well_spmv64,
+)
+from sparse_linear_tpu_torch.ops.spgemm import (  # noqa: E402
+    spgemm,
+    spgemm_apply_well,
+    spgemm_plan_well,
 )
 from sparse_linear_tpu_torch.utils.grids import poisson_2d, poisson_3d  # noqa: E402
 
@@ -126,3 +149,140 @@ def test_dia_spmv_chain_matches_plain_steps(dev, dtype, k):
     assert _rel(y, ref) <= (1e-5 if dtype == torch.float32 else 1e-12)
     with pytest.raises(ValueError):
         dia_spmv_chain(a, x, 0)
+
+
+# ------------------------------------------- WELL kernels C and D (slice 2)
+
+def _permuted_poisson(g, dtype, dev, seed=0):
+    """The g**2 five-point operator with rows and columns relabelled by one
+    seeded permutation."""
+    coo = poisson_2d(g, dtype=dtype, device=dev).tocoo()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.randperm(g * g, device=dev, generator=gen)
+    return st.from_triples((g * g, g * g), perm[coo.row.long()],
+                           perm[coo.col.long()], coo.data).tocsr()
+
+
+def _skewed(rng, nr, nc, dtype, dev):
+    """0-64 entries a row, about 1 % of rows empty, three rows of 4096."""
+    lens = rng.integers(1, 65, nr)
+    lens[rng.random(nr) < 0.01] = 0
+    lens[[1, nr // 2, nr - 1]] = 4096
+    rows = np.repeat(np.arange(nr), lens)
+    cols = rng.integers(0, nc, rows.size)
+    return st.from_triples((nr, nc), rows, cols, rng.standard_normal(
+        rows.size), dtype=dtype, device=dev).tocsr()
+
+
+def _well_case(case, dtype, dev):
+    rng = np.random.default_rng(3)
+    if case == "permuted_64":
+        return _permuted_poisson(64, dtype, dev)
+    if case == "skewed_3000x5000":
+        return _skewed(rng, 3000, 5000, dtype, dev)
+    if case == "tiny_7x9":
+        return st.from_dense(rng.standard_normal((7, 9)) * (
+            rng.random((7, 9)) < 0.4), device=dev).map_values(
+                lambda v: v.to(dtype))
+    return st.zeros((100, 50), dtype=dtype, device=dev)
+
+
+WELL_CASES = ["permuted_64", "skewed_3000x5000", "tiny_7x9", "empty_100x50"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", WELL_CASES)
+def test_well_spmv_kernel_matches_plain(dev, dtype, case):
+    a = _well_case(case, dtype, dev)
+    w = csr_to_well(a)
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        a.shape[1]), dtype=dtype, device=dev)
+    before = well_spmv.launches
+    y = well_spmv(w, x)
+    torch.cuda.synchronize()
+    assert well_spmv.launches == before + 1
+    ref = well_spmv_plain(w, x)
+    assert y.shape == ref.shape == (a.shape[0],)
+    if a.nnz == 0:
+        assert not bool(y.any())
+    else:
+        assert _rel(y, ref) <= RTOL[dtype]
+        assert _rel(y, st.spmv(a, x)) <= RTOL[dtype]
+    # W @ x is the kernel on CUDA tensors
+    w @ x
+    assert well_spmv.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m", [1, 5, 16, 21])
+def test_well_spmm_kernel_matches_plain(dev, dtype, m):
+    """Plane-major and column-major, m below, at and past the 16-RHS tile
+    (the last tile masked), with strided planes."""
+    for case in ("permuted_64", "skewed_3000x5000"):
+        a = _well_case(case, dtype, dev)
+        w = csr_to_well(a)
+        xp = torch.as_tensor(np.random.default_rng(5).standard_normal(
+            (m, a.shape[1])), dtype=dtype, device=dev)
+        before = well_spmm.launches
+        y = well_spmm_planes(w, xp)
+        torch.cuda.synchronize()
+        assert well_spmm.launches == before + 1
+        ref = well_spmm_planes_plain(w, xp)
+        assert y.shape == (m, a.shape[0])
+        assert _rel(y, ref) <= RTOL[dtype]
+        yc = well_spmm(w, xp.T)          # column-major view: strides (1, nc)
+        assert yc.shape == (a.shape[0], m)
+        assert _rel(yc, ref.T) <= RTOL[dtype]
+        yc2 = well_spmm(w, xp.T.contiguous())
+        assert _rel(yc2, ref.T) <= RTOL[dtype]
+        assert well_spmm.launches == before + 3
+
+
+def test_well_kernels_f64_contract_and_spgemm(dev):
+    a = _permuted_poisson(96, torch.float64, dev, seed=1)
+    a = a.map_values(lambda v: v * (1 + 1e-3 * torch.randn(
+        v.shape, dtype=v.dtype, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(2))))
+    w = csr_to_well64(a)
+    x = torch.randn(a.shape[1], dtype=torch.float64, device=dev)
+    y, ref = well_spmv64(w, x), st.spmv(a, x)
+    assert float(torch.linalg.vector_norm(y - ref)
+                 / torch.linalg.vector_norm(ref)) <= 1e-13
+    xp = torch.randn((3, a.shape[1]), dtype=torch.float64, device=dev)
+    assert _rel(well_spmm64_planes(w, xp), well_spmm_planes_plain(w, xp)) \
+        <= 1e-12
+    # staged SpGEMM (kernel C three times) against the sort-based form
+    c0 = well_spmv.launches
+    plan = spgemm_plan_well(a, a)
+    c = spgemm_apply_well(plan, a.data, a.data)
+    assert well_spmv.launches == c0 + 3
+    ref_c = spgemm(a, a)
+    assert torch.equal(c.indptr.long(), ref_c.indptr.long())
+    assert torch.equal(c.indices, ref_c.indices)
+    assert _rel(c.data, ref_c.data) <= 1e-12
+
+
+def test_well_kernels_refuse(dev):
+    a = _permuted_poisson(8, torch.float32, dev)
+    wc = csr_to_well(a.map_values(lambda v: v.to(torch.complex64)))
+    x = torch.ones(64, dtype=torch.complex64, device=dev)
+    with pytest.raises(TypeError, match="complex WELL on CUDA"):
+        well_spmv(wc, x)
+    with pytest.raises(TypeError, match="complex WELL on CUDA"):
+        well_spmm_planes(wc, x[None, :])
+    w = csr_to_well(a)
+    with pytest.raises(TypeError, match="complex WELL on CUDA"):
+        well_spmv(w, x)
+    with pytest.raises(ValueError, match="different devices"):
+        well_spmv(w, torch.ones(64))
+    with pytest.raises(ValueError, match="dimension mismatch"):
+        well_spmv(w, torch.ones(63, device=dev))
+    import dataclasses
+
+    bad = dataclasses.replace(w, cols=w.cols + 64)
+    with pytest.raises(ValueError, match="sliced layout"):
+        well_spmv(bad, torch.ones(64, device=dev))
+    with pytest.raises(ValueError, match="sliced layout"):
+        well_spmm(bad, torch.ones((64, 2), device=dev))
