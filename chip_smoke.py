@@ -10,20 +10,25 @@ NVIDIA GPU:
 3. Kernel parity: each kernel against its plain PyTorch version on the card,
    at the shapes the main paths use and at harder ones (unaligned,
    rectangular, 3D with +-46,656 offsets; for WELL a 3,000,000 x 2,000,000
-   matrix with skewed rows).  Max relative error
+   matrix with skewed rows; kernel D at m = 5, 16, 17, 33, 40 across its
+   16-RHS tile edge, on both operators in both types).  Max relative error
    max|y - y_plain| / max|y_plain| <= 1e-5 in f32 and 1e-12 in f64 for the
-   SpMV and SpMM kernels, <= 1e-4 for 50 chained f32 steps; the f64 WELL
-   SpMV also meets ||y - y_csr|| / ||y_csr|| <= 1e-13 against the plain CSR
-   SpMV at 1448**2.
+   SpMV and SpMM kernels and the 7-step f64 chain, <= 1e-4 for 50 chained
+   f32 steps; the f64 WELL SpMV also meets ||y - y_csr|| / ||y_csr|| <=
+   1e-13 against the plain CSR SpMV at 1448**2.
 4. Main path at full size, with the kernels' launch counts set to 0 before
    and read after: 2048**2 Poisson triples on the card -> from_triples ->
    tocsr -> check_matrix -> csr_to_dia; the top of the spectrum by power
    iteration through the one-launch chain (against the analytic value); CG
    in f64 to 1e-10, with the true residual through the plain CSR SpMV
    <= 1e-9; the entry step at grid 2048 in f32 against the plain version.
-5. Times: each kernel and its plain version from CUDA events (median of 24,
-   L2 flushed before each call), with GB/s, beside the card's name and
-   power limit.
+5. Times: each kernel, its plain version and the one PyTorch call that
+   computes the same function (cuSPARSE through a torch sparse CSR tensor
+   of the same operator; none for the chain) from CUDA events (median of
+   24, L2 flushed before each call), in f32 and f64, with GB/s, beside the
+   card's name and power limit, and each kernel's bound: the larger of its
+   bytes (each input read once, each output written once) over 3.35 TB/s
+   and its flops over 67 (f32) or 34 (f64) TFLOP/s.
 6. Slice-2 main path at full size, with the WELL kernels' launch counts set
    to 0 before and read after: the 2048**2 triples with their unknowns
    relabelled by a seeded permutation (an unstructured numbering) ->
@@ -34,7 +39,10 @@ NVIDIA GPU:
    the permuted 1024**2 operator against the sort-based one (identical
    pattern, values within 1e-12); the peak device memory.
 
-Prints one JSON line of the kernels, then as the last line
+Prints one JSON line of the kernels (``ms``, ``plain_ms``, ``bound_ms``,
+``bound_by``, ``bound_share`` = bound_ms / ms, ``library_ms``, null where
+no library call computes the function, ``launches`` from the main paths,
+``max_abs_err``), then as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
 is then non-zero and the last line is not printed.  Without a CUDA device,
 or without the package beside this script, it fails before any result.
@@ -43,12 +51,14 @@ or without the package beside this script, it fails before any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -57,6 +67,14 @@ WELL_SOURCE = "sparse_linear_tpu_torch/csrc/well_spmv.cu"
 PALLAS = "sparse_linear_tpu/kernels/spmv_pallas.py"
 PALLAS_WELL = "sparse_linear_tpu/kernels/spmv_well.py"
 PALLAS_WELL64 = "sparse_linear_tpu/kernels/spmv_well64.py"
+
+# bound_ms: H100 SXM peaks from NVIDIA's data sheet, at the full 700 W
+HBM_BYTES_PER_S = 3.35e12
+# times of the previous designs of the two kernels redesigned since
+# (PERF.md §6: measured by this script before the redesign, on an NVIDIA
+# H100 80GB HBM3 at 700.00 W), printed beside this run's
+PREVIOUS_MS = {"well_spmv torch.float32": 0.1704, "well_spmv torch.float64": 0.3070,
+          "dia_spmv_chain torch.float32": 2.6613}
 
 
 def require(cond, msg):
@@ -122,6 +140,9 @@ def main() -> None:
     # the WELL phases draw from their own stream, so that the slice-1
     # phases see the same random numbers as before them
     wgen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    # checks added after a stream was in use draw from a third one, so that
+    # the main paths keep the draws (and CG iteration counts) they had
+    xgen = torch.Generator(device=dev).manual_seed(args.seed + 2)
     f32, f64 = torch.float32, torch.float64
 
     def randn(n, dtype, generator=gen):
@@ -225,13 +246,34 @@ def main() -> None:
           f"alpha=0.125: max rel err {chain_rel:.3e} (max abs "
           f"{chain_abs:.3e}, tol 1e-4)", flush=True)
     require(chain_rel <= 1e-4, f"dia_spmv_chain disagrees: {chain_rel}")
-    del a32, x, y, ref
+    # kernels B and C sum in a fixed order with no atomics: a launch
+    # repeated on the same input gives bitwise the same result
+    same = all(torch.equal(dia_spmv_chain(a32, x, 50, alpha=0.125), y)
+               for _ in range(10))
+    print(f"phase 3 dia_spmv_chain f32 k=50 repeated 10 times: bitwise "
+          f"equal {same}", flush=True)
+    require(same, "dia_spmv_chain is not repeatable")
+    # f64 at an unaligned size (the power iteration of phase 4 is f64)
+    a64 = poisson_2d(1448, dtype=f64, fmt="dia", device=dev)
+    x = randn(a64.shape[1], f64, xgen)
+    y = dia_spmv_chain(a64, x, 7, alpha=0.125)
+    ref = x
+    for _ in range(7):
+        ref = dia_spmv(a64, ref) * 0.125
+    torch.cuda.synchronize()
+    _, chain64_rel = max_err(y, ref)
+    print(f"phase 3 parity dia_spmv_chain poisson_2d(1448) f64 k=7 "
+          f"alpha=0.125: max rel err {chain64_rel:.3e} (tol 1e-12)",
+          flush=True)
+    require(chain64_rel <= 1e-12, f"dia_spmv_chain f64 disagrees: "
+            f"{chain64_rel}")
+    del a32, a64, x, y, ref
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     # WELL kernels C (SpMV) and D (SpMM) against their plain versions
-    def check_well_spmv(label, w):
-        x = randn(w.shape[1], w.dtype, wgen)
+    def check_well_spmv(label, w, generator=wgen):
+        x = randn(w.shape[1], w.dtype, generator)
         y = well_spmv(w, x)
         ref = well_spmv_plain(w, x)
         torch.cuda.synchronize()
@@ -241,11 +283,13 @@ def main() -> None:
               f"err {rel:.3e} (max abs {err:.3e}, tol {tol[w.dtype]:.0e})",
               flush=True)
         require(rel <= tol[w.dtype], f"well_spmv {label} disagrees: {rel}")
+        require(all(torch.equal(well_spmv(w, x), y) for _ in range(3)),
+                f"well_spmv {label} is not repeatable")
         parity_abs[f"well_spmv {label}"] = err
         return x, y
 
-    def check_well_spmm(label, w, m, column_major=False):
-        xp = randn(m * w.shape[1], w.dtype, wgen).reshape(m, w.shape[1])
+    def check_well_spmm(label, w, m, column_major=False, generator=wgen):
+        xp = randn(m * w.shape[1], w.dtype, generator).reshape(m, w.shape[1])
         if column_major:
             y = well_spmm(w, xp.T.contiguous()).T
         else:
@@ -263,12 +307,21 @@ def main() -> None:
         parity_abs[f"well_spmm {label} m={m}"
                    + (" column-major" if column_major else "")] = err
 
+    # m crosses kernel D's 16-RHS tile edge: below, at, one past, two
+    # tiles and one past, and a ragged third tile.  The m of the earlier
+    # checks draw from wgen as before, the rest from xgen.
+    spmm_ms = (5, 16, 17, 33, 40)
     for dtype in (f32, f64):
         w = st.csr_to_well(permuted_csr(2048, dtype))
         check_well_spmv(f"permuted 2048^2 {dtype}", w)
-        for m in ((16, 5) if dtype == f32 else (16,)):
+        first = (16, 5) if dtype == f32 else (16,)
+        for m in first:
             check_well_spmm(f"permuted 2048^2 {dtype}", w, m)
         check_well_spmm(f"permuted 2048^2 {dtype}", w, 16, column_major=True)
+        for m in spmm_ms:
+            if m not in first:
+                check_well_spmm(f"permuted 2048^2 {dtype}", w, m,
+                                generator=xgen)
         del w
 
     # K7's contract: f64 WELL against f64 CSR SpMV, norm-wise
@@ -298,16 +351,26 @@ def main() -> None:
     del rows, cols, lens
     row_len = skew.indptr[1:] - skew.indptr[:-1]
     n_empty, longest = int((row_len == 0).sum()), int(row_len.max())
-    print(f"phase 3 skewed {nr_s}x{nc_s} f32: nnz {skew.nnz}, {n_empty} "
+    print(f"phase 3 skewed {nr_s}x{nc_s}: nnz {skew.nnz}, {n_empty} "
           f"empty rows, longest row {longest}", flush=True)
     # (duplicate columns of a long row are summed, so it may come out a
     # few entries short of 4096)
     require(n_empty > 0 and longest > 64, "skewed matrix lost its shape")
-    w = st.csr_to_well(skew)
+    w32 = st.csr_to_well(skew)
     del skew, row_len
-    check_well_spmv(f"skewed {nr_s}x{nc_s} f32", w)
-    check_well_spmm(f"skewed {nr_s}x{nc_s} f32", w, 5)
-    del w
+    check_well_spmv(f"skewed {nr_s}x{nc_s} {f32}", w32)
+    check_well_spmm(f"skewed {nr_s}x{nc_s} {f32}", w32, 5)
+    for dtype in (f32, f64):
+        w = w32 if dtype == f32 else dataclasses.replace(
+            w32, vals=w32.vals.to(f64))
+        if dtype == f64:
+            check_well_spmv(f"skewed {nr_s}x{nc_s} {dtype}", w, xgen)
+        for m in spmm_ms:
+            if (dtype, m) != (f32, 5):
+                check_well_spmm(f"skewed {nr_s}x{nc_s} {dtype}", w, m,
+                                generator=xgen)
+        del w
+    del w32
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -425,80 +488,136 @@ def main() -> None:
         torch.cuda.synchronize()
         return [s.elapsed_time(e) for s, e in events]
 
-    def in_turns(plain, kernel):
-        """Plain, kernel, kernel, plain: the median of each over its 24
-        calls in both turns."""
+    def in_turns(plain, kernel, library=None):
+        """Plain, library, kernel, kernel, library, plain: the median of each
+        over its 24 calls in both turns (library None where there is no
+        library call)."""
         p = samples_ms(plain)
+        lib = samples_ms(library) if library else []
         k = samples_ms(kernel) + samples_ms(kernel)
+        lib += samples_ms(library) if library else []
         p += samples_ms(plain)
-        return statistics.median(k), statistics.median(p)
+        return (statistics.median(k), statistics.median(p),
+                statistics.median(lib) if lib else None)
+
+    # outside the tensor cores (NVIDIA's data sheet, H100 SXM)
+    peak_flops = {f32: 67e12, f64: 34e12}
+
+    def bound(nbytes, flops, dtype):
+        """The least time the card could take: the larger of the bytes over
+        the HBM rate and the flops over the peak rate of the type, and
+        which of the two it is."""
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / peak_flops[dtype] * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+
+    def library_csr(csr):
+        """The same operator as a torch sparse CSR tensor: ``@`` on it is
+        the one PyTorch call (cuSPARSE) that computes the kernel's
+        function.  Built and timed here only; the port never calls it."""
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.sparse_csr_tensor(
+                csr.indptr.to(torch.int32), csr.indices.to(torch.int32),
+                csr.data, csr.shape)
+
+    def record(name, dtype, k_ms, p_ms, lib_ms, nbytes, flops, library):
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        times[f"{name} {dtype}"] = {
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / k_ms, "library_ms": lib_ms,
+            "library": library}
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        prev = PREVIOUS_MS.get(f"{name} {dtype}")
+        prev = "" if prev is None else \
+            f"; previous design (PERF.md): {prev:.4f} ms"
+        print(f"phase 5 time [{card}] {name} {dtype}: kernel {k_ms:.4f} ms "
+              f"({nbytes / k_ms / 1e6:.1f} GB/s), bound {b_ms:.4f} ms by "
+              f"{b_by} ({b_ms / k_ms:.1%} of it reached), plain "
+              f"{p_ms:.4f} ms, library {lib}{prev}", flush=True)
 
     times = {}
     for dtype in (f32, f64):
-        a = poisson_2d(g, dtype=dtype, fmt="dia", device=dev)
+        csr = poisson_2d(g, dtype=dtype, device=dev)
+        a = csr_to_dia(csr)
+        lib_a = library_csr(csr)
+        nnz = csr.nnz
+        del csr
         x = randn(n, dtype)
         nbytes = (len(a.offsets) + 2) * n * a.data.element_size()
-        k_ms, p_ms = in_turns(lambda: dia_spmv(a, x),
-                              lambda: dia_spmv_kernel(a, x))
-        times[f"dia_spmv {dtype}"] = (k_ms, p_ms)
-        print(f"phase 5 time [{card}] dia_spmv poisson_2d(2048) {dtype}: "
-              f"kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} GB/s), plain "
-              f"{p_ms:.4f} ms ({nbytes / p_ms / 1e6:.1f} GB/s), "
-              f"{nbytes / 1e6:.1f} MB per call", flush=True)
-        if dtype == f32:
-            def plain_chain():
-                y = x
-                for _ in range(50):
-                    y = dia_spmv(a, y) * 0.125
-                return y
+        k_ms, p_ms, l_ms = in_turns(lambda: dia_spmv(a, x),
+                                    lambda: dia_spmv_kernel(a, x),
+                                    lambda: lib_a @ x)
+        record("dia_spmv", dtype, k_ms, p_ms, l_ms, nbytes, 2 * nnz,
+               "torch.sparse_csr_tensor @ x (cuSPARSE SpMV), stencil order")
+        del lib_a
 
-            c_ms, pc_ms = in_turns(
-                plain_chain, lambda: dia_spmv_chain(a, x, 50, alpha=0.125))
-            times["dia_spmv_chain"] = (c_ms, pc_ms)
-            print(f"phase 5 time [{card}] dia_spmv_chain poisson_2d(2048) "
-                  f"f32 k=50: kernel {c_ms:.4f} ms per launch "
-                  f"({c_ms / 50:.4f} ms/step, "
-                  f"{50 * nbytes / c_ms / 1e6:.1f} GB/s), plain 50 steps "
-                  f"{pc_ms:.4f} ms ({pc_ms / 50:.4f} ms/step, "
-                  f"{50 * nbytes / pc_ms / 1e6:.1f} GB/s)", flush=True)
+        def plain_chain():
+            y = x
+            for _ in range(50):
+                y = dia_spmv(a, y) * 0.125
+            return y
+
+        # one launch reads the operator, x and y once: the bound of the
+        # whole chain, not of a step
+        c_ms, pc_ms, _ = in_turns(
+            plain_chain, lambda: dia_spmv_chain(a, x, 50, alpha=0.125))
+        record("dia_spmv_chain", dtype, c_ms, pc_ms, None, nbytes,
+               50 * (2 * nnz + n), "none")
+        print(f"phase 5 time [{card}] dia_spmv_chain {dtype} k=50: "
+              f"{c_ms / 50:.4f} ms/step (previous design (PERF.md), f32: "
+              f"0.0532 ms/step)", flush=True)
         del a, x
 
     # kernels C and D on the permuted 2048**2 operator.  Bytes: the stored
     # slots (value + int32 column) + slice_ptr + x + y, for D the A stream
-    # once plus m (x + y); nnz (itemsize + 4) is printed beside them so the
+    # once plus X and Y; nnz (itemsize + 4) is printed beside them so the
     # padding's share shows.
     m_rhs = 16
     for dtype in (f32, f64):
-        w = st.csr_to_well(permuted_csr(g, dtype))
+        csr = permuted_csr(g, dtype)
+        w = st.csr_to_well(csr)
+        lib_c = library_csr(csr)
+        nnz = csr.nnz
+        del csr
         item = w.vals.element_size()
         a_bytes = w.cols.shape[0] * (item + 4) + w.slice_ptr.numel() * 8
-        nnz_bytes = int((w.vals != 0).sum()) * (item + 4)
         x = randn(n, dtype, wgen)
         nbytes = a_bytes + 2 * n * item
-        k_ms, p_ms = in_turns(lambda: well_spmv_plain(w, x),
-                              lambda: well_spmv(w, x))
-        times[f"well_spmv {dtype}"] = (k_ms, p_ms)
-        print(f"phase 5 time [{card}] well_spmv permuted 2048^2 {dtype}: "
-              f"kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} GB/s), plain "
-              f"{p_ms:.4f} ms ({nbytes / p_ms / 1e6:.1f} GB/s), "
-              f"{nbytes / 1e6:.1f} MB per call (slots {a_bytes / 1e6:.1f} MB,"
-              f" nnz * (itemsize + 4) {nnz_bytes / 1e6:.1f} MB)", flush=True)
+        k_ms, p_ms, l_ms = in_turns(lambda: well_spmv_plain(w, x),
+                                    lambda: well_spmv(w, x),
+                                    lambda: lib_c @ x)
+        record("well_spmv", dtype, k_ms, p_ms, l_ms, nbytes, 2 * nnz,
+               "torch.sparse_csr_tensor @ x (cuSPARSE SpMV), permuted")
+        print(f"phase 5 well_spmv {dtype}: {nbytes / 1e6:.1f} MB per call "
+              f"(slots {a_bytes / 1e6:.1f} MB, nnz * (itemsize + 4) "
+              f"{nnz * (item + 4) / 1e6:.1f} MB)", flush=True)
         xp = randn(m_rhs * n, dtype, wgen).reshape(m_rhs, n)
         xc = xp.T.contiguous()
+        xcm = xp.T  # (n, m) with column-major strides
         mbytes = a_bytes + 2 * m_rhs * n * item
-        k_ms, p_ms = in_turns(lambda: well_spmm_planes_plain(w, xp),
-                              lambda: well_spmm_planes(w, xp))
-        c_ms = statistics.median(samples_ms(lambda: well_spmm(w, xc))
-                                 + samples_ms(lambda: well_spmm(w, xc)))
-        times[f"well_spmm {dtype}"] = (k_ms, p_ms)
-        print(f"phase 5 time [{card}] well_spmm_planes permuted 2048^2 "
-              f"{dtype} m={m_rhs} (X copied to (nc, m), then kernel D): "
-              f"{k_ms:.4f} ms ({mbytes / k_ms / 1e6:.1f} GB/s, "
-              f"{k_ms / m_rhs:.4f} ms/RHS), plain {p_ms:.4f} ms "
-              f"({mbytes / p_ms / 1e6:.1f} GB/s); column-major well_spmm "
-              f"(kernel D alone) {c_ms:.4f} ms ({mbytes / c_ms / 1e6:.1f} "
-              f"GB/s); {mbytes / 1e6:.1f} MB per call", flush=True)
-        del w, x, xp, xc
+        # kernel D alone is the column-major well_spmm: it reads X (nc, m)
+        # and writes Y (nr, m) as they lie; well_spmm_planes adds the copy
+        # of its planes to that layout
+        k_ms, p_ms, l_row = in_turns(lambda: well_spmm_planes_plain(w, xp),
+                                     lambda: well_spmm(w, xc),
+                                     lambda: lib_c @ xc)
+        l_col = statistics.median(samples_ms(lambda: lib_c @ xcm)
+                                  + samples_ms(lambda: lib_c @ xcm))
+        planes_ms = statistics.median(
+            samples_ms(lambda: well_spmm_planes(w, xp))
+            + samples_ms(lambda: well_spmm_planes(w, xp)))
+        record("well_spmm", dtype, k_ms, p_ms, min(l_row, l_col), mbytes,
+               2 * nnz * m_rhs,
+               f"torch.sparse_csr_tensor @ X (cuSPARSE SpMM), X (n, {m_rhs}) "
+               f"{'row' if l_row <= l_col else 'column'}-major, the faster")
+        times[f"well_spmm {dtype}"]["planes_ms"] = planes_ms
+        print(f"phase 5 well_spmm {dtype} m={m_rhs}: well_spmm_planes (X "
+              f"copied to (nc, m), then kernel D) {planes_ms:.4f} ms; "
+              f"library X row-major {l_row:.4f} ms, column-major "
+              f"{l_col:.4f} ms; {mbytes / 1e6:.1f} MB per call", flush=True)
+        del w, x, xp, xc, xcm, lib_c
     torch.cuda.empty_cache()
 
     # ------------------------------------ 6. slice-2 main path, full size
@@ -603,39 +722,40 @@ def main() -> None:
     require(launches["well_spmm"] >= 1, "main path launched no well_spmm")
     require(peak2_gb < 5.0, f"peak device memory {peak2_gb} GB")
 
-    k32, p32 = times[f"dia_spmv {f32}"]
-    kc, pc = times["dia_spmv_chain"]
-    kw, pw = times[f"well_spmv {f64}"]
-    km, pm = times[f"well_spmm {f64}"]
+    def entry_of(name, dtype, replaces, launches_of, err, shape, also=()):
+        t = times[f"{name} {dtype}"]
+        out = {"name": name, "route": "cuda",
+               "source": SPMV_SOURCE if name.startswith("dia") else
+               WELL_SOURCE, "replaces": replaces}
+        if also:
+            out["also_replaces"] = list(also)
+        out.update({"launches": launches[launches_of], "max_abs_err": err,
+                    "ms": t["ms"], "plain_ms": t["plain_ms"],
+                    "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                    "bound_share": t["bound_share"],
+                    "library_ms": t["library_ms"], "library": t["library"],
+                    "shape": shape})
+        if "planes_ms" in t:
+            out["planes_ms"] = t["planes_ms"]
+        return out
+
     print(json.dumps({"kernels": [
-        {"name": "dia_spmv", "route": "cuda", "source": SPMV_SOURCE,
-         "replaces": f"{PALLAS}:133",
-         "also_replaces": [f"{PALLAS}:234"],
-         "launches": launches["dia_spmv"],
-         "max_abs_err": parity_abs[f"poisson_2d(2048) {f32}"],
-         "ms": k32, "plain_ms": p32,
-         "shape": "poisson_2d(2048) f32, L2 flushed"},
-        {"name": "dia_spmv_chain", "route": "cuda", "source": SPMV_SOURCE,
-         "replaces": f"{PALLAS}:370",
-         "launches": launches["dia_spmv_chain"],
-         "max_abs_err": chain_abs,
-         "ms": kc, "plain_ms": pc,
-         "shape": "poisson_2d(2048) f32, k=50 per launch, L2 flushed"},
-        {"name": "well_spmv", "route": "cuda", "source": WELL_SOURCE,
-         "replaces": f"{PALLAS_WELL}:116",
-         "also_replaces": [f"{PALLAS_WELL64}:195"],
-         "launches": launches["well_spmv"],
-         "max_abs_err": parity_abs[f"well_spmv permuted 2048^2 {f64}"],
-         "ms": kw, "plain_ms": pw,
-         "shape": "permuted poisson 2048^2 f64, L2 flushed"},
-        {"name": "well_spmm", "route": "cuda", "source": WELL_SOURCE,
-         "replaces": f"{PALLAS_WELL}:335",
-         "also_replaces": [f"{PALLAS_WELL}:385", f"{PALLAS_WELL64}:284"],
-         "launches": launches["well_spmm"],
-         "max_abs_err": parity_abs[f"well_spmm permuted 2048^2 {f64} m=16"],
-         "ms": km, "plain_ms": pm,
-         "shape": "permuted poisson 2048^2 f64, m=16 plane-major, "
-                  "L2 flushed"},
+        entry_of("dia_spmv", f32, f"{PALLAS}:133", "dia_spmv",
+                 parity_abs[f"poisson_2d(2048) {f32}"],
+                 "poisson_2d(2048) f32, L2 flushed", (f"{PALLAS}:234",)),
+        entry_of("dia_spmv_chain", f32, f"{PALLAS}:370", "dia_spmv_chain",
+                 chain_abs, "poisson_2d(2048) f32, k=50 per launch, bound "
+                 "of one launch, L2 flushed"),
+        entry_of("well_spmv", f64, f"{PALLAS_WELL}:116", "well_spmv",
+                 parity_abs[f"well_spmv permuted 2048^2 {f64}"],
+                 "permuted poisson 2048^2 f64, L2 flushed",
+                 (f"{PALLAS_WELL64}:195",)),
+        entry_of("well_spmm", f64, f"{PALLAS_WELL}:335", "well_spmm",
+                 parity_abs[f"well_spmm permuted 2048^2 {f64} m=16"],
+                 "permuted poisson 2048^2 f64, m=16, kernel D alone "
+                 "(column-major X); planes_ms adds well_spmm_planes' copy, "
+                 "L2 flushed",
+                 (f"{PALLAS_WELL}:385", f"{PALLAS_WELL64}:284")),
     ], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

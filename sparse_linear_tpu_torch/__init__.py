@@ -19,8 +19,13 @@ structured (DIA) and unstructured (WELL) operators:
   * interop/ — scipy.sparse / raw-array interchange, and carrying matrices
     across from the JAX package as numpy arrays.
 
-Every constructor that makes tensors from nothing takes ``device=``; the
-rest follow the device of their inputs.
+Entry points run on the card unless the caller asks for the CPU.  Every
+constructor that makes tensors from nothing or from host arrays takes
+``device=`` and, without it, uses ``dtypes.default_device()``: the CUDA
+card, with no probe and no fallback, so on a machine without a GPU such a
+call raises torch's own error.  An input that is already a tensor keeps its
+device.  Pass ``device="cpu"`` (or CPU tensors) to run on the CPU, as the
+CPU tests do.
 """
 
 from sparse_linear_tpu_torch import dtypes

@@ -17,7 +17,25 @@
 // and two ping-pong vectors; step s reads x (s == 0) or the vector written
 // by step s-1 and writes buf[s % 2].  The TPU kernel keeps the operator in
 // its 128 MB VMEM; the H100 has no such scratchpad, and its 50 MB L2 holds
-// a 4.2M-row f32 Poisson operator (84 MB) only in part.
+// a 4.2M-row f32 Poisson operator (84 MB) only in part, so every step
+// streams most of the operator from HBM.  Kernel B runs one block of
+// kChainThreads per SM, each over a contiguous range of rows; the
+// diagonals of the first rows of its range (as many as the SM's shared
+// memory holds: 227 KB, about 30 MB of the 84 MB over 132 SMs) are loaded
+// once and stay resident across all k steps, and the rest is read as a
+// stream read once per step (__ldcs, evict-first), which leaves L2 to the
+// two vectors.  Fewer bytes alone did not help: one row a thread, a
+// diagonal at a time, leaves each thread one load pair outstanding and an
+// in-order warp stalls on the first FMA.  So a thread takes kChainRows rows
+// at once and loads their entries of one diagonal together.  Each row still
+// sums its diagonals in the stored order, so the result is bitwise that of
+// one row at a time.  (Measured on an NVIDIA H100 80GB HBM3 at 700.00 W,
+// 2048^2 Poisson, k = 50, tools/torch_kernel_probe.py: f32 2.43 ms a
+// launch one row a thread, 2.19 ms with four rows a thread, 1.97 ms with
+// the resident rows too and 2.08 ms with the vectors read at L2 as
+// below; f64 4.04 / 4.11 / 3.99 / 4.03 ms.  The loaded values are zeroed
+// before the guarded loads: without that nvcc spent more registers on the
+// loop and the gain was gone.)
 //
 // What bounds them: memory.  Kernel A moves (ndiag + 2) * nr * itemsize
 // bytes (117 MB for f32 at 2048^2) for 2 * ndiag flops per row, far below
@@ -40,10 +58,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kChainThreads = 1024;  // kernel B: one block per SM
+constexpr int kChainRows = 4;        // rows a thread of kernel B takes at once
 
-// One output row.  x is read with ordinary loads: in the chain it is a
-// vector that other blocks wrote during this launch, which the read-only
-// (non-coherent) path must not serve.
+// One output row of kernel A.  No thread writes x during the launch.
 template <typename T>
 __device__ __forceinline__ T dia_row(const T* __restrict__ data,
                                      const int64_t* __restrict__ offsets,
@@ -69,20 +87,67 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Block b takes rows [b chunk, (b + 1) chunk); thread t takes rows t,
+// t + kChainThreads, ... of it, kChainRows at a time.  The first ``resident``
+// rows keep their diagonals in shared memory, ds[d * resident + r].  x and
+// the ping-pong vectors are read at L2 (__ldcg), never from the SM's L1:
+// other blocks write them between grid barriers.  (A variant of this loop
+// that read them with ordinary loads gave results 1.5e-2 off, the same in
+// every run, where __ldcg gave them exactly; tools/torch_kernel_probe.py,
+// gs_r4_256x4.)
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kChainThreads, 1)
     dia_chain_kernel(const T* __restrict__ data,
                      const int64_t* __restrict__ offsets, const T* x, T* buf0,
-                     T* buf1, int64_t ndiag, int64_t n, int k, T alpha) {
+                     T* buf1, int64_t ndiag, int64_t n, int k, T alpha,
+                     int64_t chunk, int64_t resident) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ds = reinterpret_cast<T*>(smem);
   cg::grid_group grid = cg::this_grid();
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t first =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t row0 = blockIdx.x * chunk;
+  const int64_t row1 = row0 + chunk < n ? row0 + chunk : n;
+  const int64_t held = row1 - row0 < resident ? row1 - row0 : resident;
+  for (int64_t d = 0; d < ndiag; ++d) {
+    for (int64_t r = threadIdx.x; r < held; r += kChainThreads) {
+      ds[d * resident + r] = __ldcs(data + d * n + row0 + r);
+    }
+  }
+  __syncthreads();
   const T* src = x;
   for (int s = 0; s < k; ++s) {
     T* dst = (s & 1) ? buf1 : buf0;
-    for (int64_t i = first; i < n; i += stride) {
-      dst[i] = alpha * dia_row(data, offsets, src, ndiag, n, n, i);
+    for (int64_t i0 = row0 + threadIdx.x; i0 < row1;
+         i0 += kChainThreads * kChainRows) {
+      T acc[kChainRows];
+#pragma unroll
+      for (int q = 0; q < kChainRows; ++q) acc[q] = T(0);
+      for (int64_t d = 0; d < ndiag; ++d) {
+        const int64_t off = __ldg(offsets + d);
+        bool ok[kChainRows];
+        T a[kChainRows], xv[kChainRows];
+#pragma unroll
+        for (int q = 0; q < kChainRows; ++q) {
+          const int64_t i = i0 + q * kChainThreads;
+          const int64_t j = i + off;
+          ok[q] = i < row1 && j >= 0 && j < n;
+          a[q] = T(0);
+          xv[q] = T(0);
+          if (ok[q]) {
+            a[q] = i - row0 < held ? ds[d * resident + i - row0]
+                                   : __ldcs(data + d * n + i);
+            xv[q] = __ldcg(src + j);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kChainRows; ++q) {
+          if (ok[q]) acc[q] += a[q] * xv[q];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kChainRows; ++q) {
+        const int64_t i = i0 + q * kChainThreads;
+        if (i < row1) dst[i] = alpha * acc[q];
+      }
     }
     if (s + 1 < k) grid.sync();
     src = dst;
@@ -126,17 +191,36 @@ int launch_chain(const void* data, const void* offsets, const void* x,
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, dia_chain_kernel<T>, kThreads, 0);
-  if (err != cudaSuccess) return err;
   int sms = 0;
   err = sm_count(device, &sms);
   if (err != cudaSuccess) return err;
-  const long long resident = static_cast<long long>(per_sm) * sms;
-  const long long want = (n + kThreads - 1) / kThreads;
-  const long long blocks = want < resident ? want : resident;
-  if (blocks < 1) return cudaErrorLaunchOutOfResources;
+  int smem_sm = 0;
+  int smem_block = 0;
+  err = cudaDeviceGetAttribute(
+      &smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(
+      &smem_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  // one block per SM, each over a contiguous range of rows; the SM keeps
+  // 1 KB of its shared memory for the block
+  const long long blocks = n < sms ? n : sms;
+  const long long chunk = (n + blocks - 1) / blocks;
+  long long bytes = smem_sm - 1024LL < smem_block ? smem_sm - 1024LL
+                                                  : smem_block;
+  long long resident =
+      ndiag > 0 ? bytes / (ndiag * static_cast<long long>(sizeof(T))) : 0;
+  if (resident > chunk) resident = chunk;
+  bytes = resident * ndiag * static_cast<long long>(sizeof(T));
+  err = cudaFuncSetAttribute(dia_chain_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, dia_chain_kernel<T>, kChainThreads, static_cast<size_t>(bytes));
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1 || blocks < 1) return cudaErrorLaunchOutOfResources;
 
   const T* data_p = static_cast<const T*>(data);
   const int64_t* offsets_p = static_cast<const int64_t*>(offsets);
@@ -147,12 +231,14 @@ int launch_chain(const void* data, const void* offsets, const void* x,
   int64_t n_v = n;
   int k_v = k;
   T alpha_v = static_cast<T>(alpha);
-  void* args[] = {&data_p, &offsets_p, &x_p,  &buf0_p, &buf1_p,
-                  &ndiag_v, &n_v,      &k_v, &alpha_v};
+  int64_t chunk_v = chunk;
+  int64_t resident_v = resident;
+  void* args[] = {&data_p, &offsets_p, &x_p, &buf0_p,  &buf1_p,    &ndiag_v,
+                  &n_v,    &k_v,       &alpha_v, &chunk_v, &resident_v};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(dia_chain_kernel<T>),
-      dim3(static_cast<unsigned>(blocks)), dim3(kThreads), args, 0,
-      static_cast<cudaStream_t>(stream));
+      dim3(static_cast<unsigned>(blocks)), dim3(kChainThreads), args,
+      static_cast<size_t>(bytes), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -25,6 +25,7 @@ __all__ = [
     "imag",
     "index_dtype",
     "as_torch_dtype",
+    "default_device",
 ]
 
 # Index dtype used across the library, as in the JAX package.
@@ -43,6 +44,18 @@ _COMPLEX_OF = {
     torch.complex64: torch.complex64,
     torch.complex128: torch.complex128,
 }
+
+
+def default_device(device=None, *inputs) -> torch.device:
+    """The device a constructor builds on: ``device`` if given, else the
+    device of the first tensor among ``inputs`` (the caller chose it), else
+    the CUDA card.  It does not probe: without a GPU a constructor given
+    neither raises torch's own error, and never runs on the CPU unless
+    asked."""
+    if device is not None:
+        return torch.device(device)
+    return next((t.device for t in inputs if isinstance(t, torch.Tensor)),
+                torch.device("cuda"))
 
 
 def as_torch_dtype(dtype) -> torch.dtype:

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from sparse_linear_tpu_torch.dtypes import default_device
 from sparse_linear_tpu_torch.utils.grids import poisson_2d
 
 __all__ = ["entry"]
@@ -23,9 +24,11 @@ def _cg_step(a, b):
     return x, torch.linalg.vector_norm(r_new)
 
 
-def entry(device, grid: int = 64, dtype=torch.float32):
+def entry(device=None, grid: int = 64, dtype=torch.float32):
     """Returns (fn, args): ``fn(*args)`` is one CG step on the ``grid`` x
-    ``grid`` Poisson operator (DIA) with b = ones, on ``device``."""
+    ``grid`` Poisson operator (DIA) with b = ones, on ``device``, by default
+    the card."""
+    device = default_device(device)
     a = poisson_2d(grid, dtype=dtype, fmt="dia", device=device)
     b = torch.ones((grid * grid,), dtype=dtype, device=device)
     return _cg_step, (a, b)

@@ -25,6 +25,7 @@ import torch
 from sparse_linear_tpu_torch.dtypes import (
     as_torch_dtype,
     conj as _conj,
+    default_device,
     index_dtype,
 )
 from sparse_linear_tpu_torch.formats.base import (
@@ -260,8 +261,8 @@ def from_triples(shape, rows, cols, vals, dtype=None, *, device=None):
     Analog of reference ``fromTriples``/``compress`` including its bounds
     checking with the position of the first offending entry.  ``rows``,
     ``cols`` and ``vals`` may be tensors or host arrays; the work runs on
-    ``device``, by default the device of the first tensor argument (the CPU
-    for host arrays).
+    ``device``, by default the device of the first tensor argument, and the
+    card when all three are host arrays.
 
     Duplicates are summed with ``index_add_`` in (row, col)-sorted order:
     on the CPU in input order, as the JAX package's ``np.add.at``; on CUDA
@@ -269,9 +270,7 @@ def from_triples(shape, rows, cols, vals, dtype=None, *, device=None):
     duplicates in its last bit (within 1e-15 relative in f64).
     """
     nr, nc = _shape2(shape)
-    if device is None:
-        device = next((t.device for t in (rows, cols, vals)
-                       if isinstance(t, torch.Tensor)), torch.device("cpu"))
+    device = default_device(device, rows, cols, vals)
     rows = _as_tensor(rows, device)
     cols = _as_tensor(cols, device)
     vals = _as_tensor(vals, device,
@@ -297,9 +296,11 @@ def from_triples(shape, rows, cols, vals, dtype=None, *, device=None):
                nnz=int(row.shape[0]))
 
 
-def diag(values, shape=None):
-    """Diagonal matrix from a vector (reference ``diag``)."""
-    values = torch.as_tensor(values)
+def diag(values, shape=None, *, device=None):
+    """Diagonal matrix from a vector (reference ``diag``).  A tensor keeps
+    its device unless ``device`` is given; host values go to ``device``,
+    by default the card."""
+    values = _as_tensor(values, default_device(device, values))
     n = int(values.shape[0])
     if shape is None:
         shape = (n, n)
@@ -315,14 +316,17 @@ def diag(values, shape=None):
     return CSR(indptr=indptr, indices=idx, data=values, shape=(nr, nc))
 
 
-def eye(n, dtype=torch.float32, *, device="cpu"):
-    """Identity (reference ``ident``)."""
-    return diag(torch.ones((n,), dtype=as_torch_dtype(dtype), device=device))
+def eye(n, dtype=torch.float32, *, device=None):
+    """Identity (reference ``ident``), on ``device``, by default the card."""
+    return diag(torch.ones((n,), dtype=as_torch_dtype(dtype),
+                           device=default_device(device)))
 
 
-def zeros(shape, dtype=torch.float32, *, device="cpu"):
-    """All-zero matrix with empty arrays (reference ``zeros``)."""
+def zeros(shape, dtype=torch.float32, *, device=None):
+    """All-zero matrix with empty arrays (reference ``zeros``), on
+    ``device``, by default the card."""
     nr, nc = _shape2(shape)
+    device = default_device(device)
     return CSR(
         indptr=torch.zeros((nr + 1,), dtype=index_dtype, device=device),
         indices=torch.zeros((0,), dtype=index_dtype, device=device),

@@ -2,8 +2,8 @@
 
 A JAX format's leaves (``np.asarray(a.data)``, ``a.offsets``, ``a.shape``,
 ``indptr``/``indices``/``data``, ``row``/``col``) go in as host arrays and
-come out as the port's format on ``device``, and back.  Only numpy arrays
-cross, so this module never imports JAX.
+come out as the port's format on ``device`` (by default the card), and
+back.  Only numpy arrays cross, so this module never imports JAX.
 
 ``from_arrays(*to_arrays(m), device=...)`` rebuilds ``m``.
 
@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sparse_linear_tpu_torch.dtypes import index_dtype
+from sparse_linear_tpu_torch.dtypes import default_device, index_dtype
 from sparse_linear_tpu_torch.formats.matrix import COO, CSC, CSR, from_triples
 from sparse_linear_tpu_torch.formats.structured import DIA
 from sparse_linear_tpu_torch.formats.well import csr_to_well
@@ -70,8 +70,10 @@ def _well_triples(arrays, shape):
     return rows[keep], cols[keep], vals[keep]
 
 
-def from_arrays(kind: str, arrays, shape, offsets=None, *, device="cpu"):
-    """The port's ``kind`` format from a mapping of leaf name -> array."""
+def from_arrays(kind: str, arrays, shape, offsets=None, *, device=None):
+    """The port's ``kind`` format from a mapping of leaf name -> array, on
+    ``device``, by default the device of a tensor leaf, else the card."""
+    device = default_device(device, *arrays.values())
     if kind not in KINDS:
         raise ValueError(f"unknown format kind {kind!r}; one of {sorted(KINDS)}")
     missing = [n for n in KINDS[kind] if n not in arrays]

@@ -3,7 +3,7 @@
 Counterpart of :mod:`sparse_linear_tpu.interop.scipy_io`.  Export copies
 the canonical arrays to the host; import re-runs normalization (sort +
 dedup-by-sum, ``from_triples``) like the reference's ``fromForeign``, on
-``device`` (the CPU by default).
+``device`` (by default the card).
 
 scipy is optional: import errors are raised lazily, only when the scipy
 functions are actually used.

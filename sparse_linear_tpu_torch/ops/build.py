@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sparse_linear_tpu_torch.dtypes import index_dtype
+from sparse_linear_tpu_torch.dtypes import default_device, index_dtype
 from sparse_linear_tpu_torch.formats.base import compute_indptr
 from sparse_linear_tpu_torch.formats.matrix import COO, CSC, CSR
 
@@ -113,11 +113,11 @@ def trim(mat):
 def from_dense(x, fmt: str = "csr", *, device=None):
     """Dense -> sparse (exact nnz).  Inverse of ``todense``/the reference's
     ``pack``.  ``x`` is a tensor or a host array; ``device`` defaults to
-    where ``x`` lives (the CPU for host arrays)."""
+    where a tensor lives, and to the card for a host array."""
+    device = default_device(device, x)
     if not isinstance(x, torch.Tensor):
-        x = torch.as_tensor(np.asarray(x))
-    if device is not None:
-        x = x.to(device)
+        x = torch.as_tensor(np.asarray(x), device=device)
+    x = x.to(device)
     if x.ndim != 2:
         raise ValueError("from_dense expects a 2-D array")
     r, c = torch.nonzero(x, as_tuple=True)

@@ -1,15 +1,20 @@
 """Structured-grid model operators: 1D/2D/3D Laplacians (Poisson systems).
 
 Counterpart of :mod:`sparse_linear_tpu.utils.grids`.  The generators build
-directly in DIA and CSR with vectorized tensor code on ``device``, so the
-2048**2 operator is made on the card without a host round trip.
+directly in DIA and CSR with vectorized tensor code on ``device`` (the
+card unless the caller names another), so the 2048**2 operator is made on
+the card without a host round trip.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sparse_linear_tpu_torch.dtypes import as_torch_dtype, index_dtype
+from sparse_linear_tpu_torch.dtypes import (
+    as_torch_dtype,
+    default_device,
+    index_dtype,
+)
 from sparse_linear_tpu_torch.formats.base import compute_indptr
 from sparse_linear_tpu_torch.formats.matrix import CSR
 from sparse_linear_tpu_torch.formats.structured import DIA
@@ -55,17 +60,19 @@ def _dia_to_csr(dia: DIA) -> CSR:
 
 
 def laplacian_1d(n: int, dtype=torch.float32, fmt: str = "csr", *,
-                 device="cpu"):
+                 device=None):
     """Tridiagonal [-1, 2, -1] operator."""
+    device = default_device(device)
     dia = _stencil_dia(n, (-1, 0, 1), (None, None, None), (-1.0, 2.0, -1.0),
                        dtype, device)
     return dia if fmt == "dia" else _dia_to_csr(dia)
 
 
 def poisson_2d(nx: int, ny: int | None = None, dtype=torch.float32,
-               fmt: str = "csr", *, device="cpu"):
+               fmt: str = "csr", *, device=None):
     """5-point 2D Laplacian on an nx x ny grid (row-major ordering):
     diag 4, neighbors -1.  N = nx*ny unknowns."""
+    device = default_device(device)
     ny = nx if ny is None else ny
     n = nx * ny
     ix = torch.arange(n, device=device) % nx
@@ -82,8 +89,9 @@ def poisson_2d(nx: int, ny: int | None = None, dtype=torch.float32,
 
 
 def poisson_3d(nx: int, ny: int | None = None, nz: int | None = None,
-               dtype=torch.float32, fmt: str = "csr", *, device="cpu"):
+               dtype=torch.float32, fmt: str = "csr", *, device=None):
     """7-point 3D Laplacian on an nx x ny x nz grid: diag 6, neighbors -1."""
+    device = default_device(device)
     ny = nx if ny is None else ny
     nz = nx if nz is None else nz
     n = nx * ny * nz

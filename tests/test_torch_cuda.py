@@ -60,7 +60,8 @@ def dev():
 
 
 def _rel(y, ref):
-    return float((y - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+    # the floor is applied in Python floats: 1e-300 underflows to 0 in f32
+    return float((y - ref).abs().max()) / max(float(ref.abs().max()), 1e-300)
 
 
 def _random_dia(rng, shape, offsets, dtype, dev):
@@ -216,28 +217,51 @@ def test_well_spmv_kernel_matches_plain(dev, dtype, case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("m", [1, 5, 16, 21])
-def test_well_spmm_kernel_matches_plain(dev, dtype, m):
+@pytest.mark.parametrize("m", [1, 5, 16, 17, 33, 40])
+@pytest.mark.parametrize("case", WELL_CASES)
+def test_well_spmm_kernel_matches_plain(dev, dtype, m, case):
     """Plane-major and column-major, m below, at and past the 16-RHS tile
-    (the last tile masked), with strided planes."""
-    for case in ("permuted_64", "skewed_3000x5000"):
-        a = _well_case(case, dtype, dev)
-        w = csr_to_well(a)
-        xp = torch.as_tensor(np.random.default_rng(5).standard_normal(
-            (m, a.shape[1])), dtype=dtype, device=dev)
-        before = well_spmm.launches
-        y = well_spmm_planes(w, xp)
-        torch.cuda.synchronize()
-        assert well_spmm.launches == before + 1
-        ref = well_spmm_planes_plain(w, xp)
-        assert y.shape == (m, a.shape[0])
-        assert _rel(y, ref) <= RTOL[dtype]
-        yc = well_spmm(w, xp.T)          # column-major view: strides (1, nc)
-        assert yc.shape == (a.shape[0], m)
-        assert _rel(yc, ref.T) <= RTOL[dtype]
-        yc2 = well_spmm(w, xp.T.contiguous())
-        assert _rel(yc2, ref.T) <= RTOL[dtype]
-        assert well_spmm.launches == before + 3
+    (the last tile masked), with strided planes, on empty rows, a partial
+    last slice, skewed long rows and rectangular shapes."""
+    a = _well_case(case, dtype, dev)
+    w = csr_to_well(a)
+    xp = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (m, a.shape[1])), dtype=dtype, device=dev)
+    before = well_spmm.launches
+    y = well_spmm_planes(w, xp)
+    torch.cuda.synchronize()
+    assert well_spmm.launches == before + 1
+    ref = well_spmm_planes_plain(w, xp)
+    assert y.shape == (m, a.shape[0])
+    assert _rel(y, ref) <= RTOL[dtype]
+    yc = well_spmm(w, xp.T)          # column-major view: strides (1, nc)
+    assert yc.shape == (a.shape[0], m)
+    assert _rel(yc, ref.T) <= RTOL[dtype]
+    yc2 = well_spmm(w, xp.T.contiguous())
+    assert _rel(yc2, ref.T) <= RTOL[dtype]
+    assert well_spmm.launches == before + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel", ["well_spmv", "dia_spmv_chain"])
+def test_redesigned_kernels_repeat_bitwise(dev, dtype, kernel):
+    """Kernels C and B, redesigned for the H100, give bitwise the same
+    result twice on one input: each row sums in a fixed order, with no
+    atomics."""
+    rng = np.random.default_rng(6)
+    if kernel == "well_spmv":
+        a = csr_to_well(_well_case("skewed_3000x5000", dtype, dev))
+        run = lambda x: well_spmv(a, x)  # noqa: E731
+    else:
+        a = poisson_2d(45, dtype=dtype, fmt="dia", device=dev)
+        run = lambda x: dia_spmv_chain(a, x, 7, alpha=0.25)  # noqa: E731
+    x = torch.as_tensor(rng.standard_normal(a.shape[1]), dtype=dtype,
+                        device=dev)
+    y1 = run(x)
+    y2 = run(x)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
 
 
 def test_well_kernels_f64_contract_and_spgemm(dev):

@@ -128,7 +128,8 @@ def test_grids(gen, fmt):
 
 def test_grids_rectangular_poisson_2d():
     j = jgrids.poisson_2d(5, 3, dtype=np.float32, fmt="dia")
-    t = tgrids.poisson_2d(5, 3, dtype=torch.float32, fmt="dia")
+    t = tgrids.poisson_2d(5, 3, dtype=torch.float32, fmt="dia",
+                          device="cpu")
     assert_same_leaves(t, j, atol=0)
 
 
@@ -250,13 +251,14 @@ def test_dia_spmv_kernel_cpu_promotion_and_complex():
 
 
 def test_dia_spmv_kernel_refuses_other_devices():
-    t = tgrids.poisson_2d(4, fmt="dia").to("meta")
+    t = tgrids.poisson_2d(4, fmt="dia", device="cpu").to("meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         dia_spmv_kernel(t, torch.ones(16, device="meta"))
     with pytest.raises(ValueError, match="different devices"):
         dia_spmv_kernel(t, torch.ones(16))
     with pytest.raises(ValueError, match="dimension mismatch"):
-        dia_spmv_kernel(tgrids.poisson_2d(4, fmt="dia"), torch.ones(15))
+        dia_spmv_kernel(tgrids.poisson_2d(4, fmt="dia", device="cpu"),
+                        torch.ones(15))
     short = tst.DIA(data=torch.ones((2, 16)), shape=(16, 16),
                     offsets=(-4, 0, 4))
     for call in (lambda: dia_spmv_kernel(short, torch.ones(16)),
@@ -297,7 +299,7 @@ def test_dia_spmv_chain_errors_match():
     with pytest.raises(ValueError, match="square"):
         dia_spmv_chain(rect, torch.ones(5), k=2)
     # unaligned square sizes run (the 1024-row alignment was a VMEM limit)
-    t = tgrids.poisson_2d(7, dtype=torch.float64, fmt="dia")
+    t = tgrids.poisson_2d(7, dtype=torch.float64, fmt="dia", device="cpu")
     xs = torch.as_tensor(np.random.default_rng(30).standard_normal(49))
     ref = xs
     for _ in range(4):

@@ -39,7 +39,7 @@ def _atol(dtype):
 
 def _both_from_triples(shape, rows, cols, vals):
     return (sl.from_triples(shape, rows, cols, vals),
-            st.from_triples(shape, rows, cols, vals))
+            st.from_triples(shape, rows, cols, vals, device="cpu"))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "c128", "f32"])
@@ -80,7 +80,7 @@ def test_from_triples_bounds_errors_identical(case):
     with pytest.raises(ValueError) as ej:
         sl.from_triples((4, 5), rows, cols, vals)
     with pytest.raises(ValueError) as et:
-        st.from_triples((4, 5), rows, cols, vals)
+        st.from_triples((4, 5), rows, cols, vals, device="cpu")
     assert str(et.value) == str(ej.value)
     assert "position" in str(et.value)
 
@@ -89,13 +89,13 @@ def test_from_triples_length_error_identical():
     with pytest.raises(ValueError) as ej:
         sl.from_triples((3, 3), [0, 1], [0], [1.0, 2.0])
     with pytest.raises(ValueError) as et:
-        st.from_triples((3, 3), [0, 1], [0], [1.0, 2.0])
+        st.from_triples((3, 3), [0, 1], [0], [1.0, 2.0], device="cpu")
     assert str(et.value) == str(ej.value)
 
 
 def test_from_triples_empty_and_dtype():
     j = sl.from_triples((3, 4), [], [], [], dtype=np.float32)
-    t = st.from_triples((3, 4), [], [], [], dtype=np.float32)
+    t = st.from_triples((3, 4), [], [], [], dtype=np.float32, device="cpu")
     assert t.nnz == j.nnz == 0
     assert t.dtype == torch.float32
     assert st.check_matrix(t) and st.check_matrix(t.tocsr())
@@ -146,7 +146,7 @@ def test_from_dense(fmt, dtype):
     d = rng.standard_normal((6, 8)) * (rng.random((6, 8)) < 0.4)
     d = d.astype(dtype)
     j = sl.from_dense(d, fmt)
-    t = st.from_dense(d, fmt)
+    t = st.from_dense(d, fmt, device="cpu")
     assert st.check_matrix(t)
     assert_same_leaves(t, j)
     np.testing.assert_array_equal(np_of(t.todense()), d)
@@ -228,14 +228,15 @@ def test_jax_state_round_trip(kind):
 
 
 def test_constructors_eye_zeros_diag():
-    assert_same_leaves(st.eye(5, dtype=torch.float64),
+    assert_same_leaves(st.eye(5, dtype=torch.float64, device="cpu"),
                        sl.eye(5, dtype=jnp.float64))
-    assert_same_leaves(st.zeros((3, 4), dtype=torch.float64),
+    assert_same_leaves(st.zeros((3, 4), dtype=torch.float64, device="cpu"),
                        sl.zeros((3, 4), dtype=jnp.float64))
     v = np.random.default_rng(15).standard_normal(4)
     assert_same_leaves(st.diag(torch.as_tensor(v), shape=(6, 4)),
                        sl.diag(jnp.asarray(v), shape=(6, 4)))
-    for m in (st.eye(5), st.zeros((3, 4)), st.diag(torch.ones(3))):
+    for m in (st.eye(5, device="cpu"), st.zeros((3, 4), device="cpu"),
+              st.diag(torch.ones(3))):
         assert st.check_matrix(m)
     with pytest.raises(ValueError, match="diag length"):
         st.diag(torch.ones(3), shape=(5, 4))
@@ -271,7 +272,7 @@ def test_spmv_spmm_axpy_scale(fmt, dtype):
 def test_sparse_products_not_ported_yet():
     """``@`` and ``*`` between sparse matrices are SpGEMM, as in the JAX
     package; the elementwise union (``+``/``-``) is not ported yet."""
-    t = st.eye(3)
+    t = st.eye(3, device="cpu")
     j = sl.eye(3, dtype=np.float32)
     for op in (lambda a: a @ a, lambda a: a * a):
         np.testing.assert_array_equal(np_of(op(t).todense()),
@@ -282,7 +283,8 @@ def test_sparse_products_not_ported_yet():
 
 
 def test_to_device_and_dtypes():
-    t = st.from_triples((2, 2), [0, 1], [1, 0], [1.0, 2.0]).tocsr()
+    t = st.from_triples((2, 2), [0, 1], [1, 0], [1.0, 2.0],
+                        device="cpu").tocsr()
     moved = t.to("cpu")
     assert moved.device == torch.device("cpu")
     assert moved.shape == t.shape

@@ -49,7 +49,7 @@ def test_scipy_roundtrip_matches_jax(fmt, dtype):
     assert tsp.format == jsp.format == fmt
     assert tsp.dtype == jsp.dtype and tsp.shape == jsp.shape
     np.testing.assert_array_equal(tsp.toarray(), jsp.toarray())
-    back = tio.from_scipy(tsp)
+    back = tio.from_scipy(tsp, device="cpu")
     assert type(back).__name__ == type(j).__name__
     np.testing.assert_array_equal(np_of(back.todense()), np_of(j.todense()))
     assert st.check_matrix(back if fmt != "coo" else st.trim(back))
@@ -67,7 +67,7 @@ def test_arrays_roundtrip_matches_jax(fmt, dtype):
     for k in dj:
         if k not in ("format", "shape"):
             np.testing.assert_array_equal(dt[k], np.asarray(dj[k]))
-    back = tio.from_arrays(dt)
+    back = tio.from_arrays(dt, device="cpu")
     np.testing.assert_array_equal(np_of(back.todense()), np_of(j.todense()))
     jback = jio.from_arrays(dt)
     np.testing.assert_array_equal(np_of(jback.todense()), np_of(j.todense()))
@@ -79,18 +79,18 @@ def test_scipy_import_renormalizes():
     m = sp.coo_matrix((np.array([1.0, 2.0, 5.0]),
                        (np.array([0, 0, 1]), np.array([0, 0, 1]))),
                       shape=(2, 2))
-    back = tio.from_scipy(m, fmt="csr")
+    back = tio.from_scipy(m, fmt="csr", device="cpu")
     assert st.check_matrix(back)
     np.testing.assert_array_equal(np_of(back.todense()),
                                   np_of(jio.from_scipy(m, fmt="csr")
                                         .todense()))
-    assert isinstance(tio.from_scipy(m), st.COO)
-    assert isinstance(tio.from_scipy(m, fmt="csc"), st.CSC)
+    assert isinstance(tio.from_scipy(m, device="cpu"), st.COO)
+    assert isinstance(tio.from_scipy(m, fmt="csc", device="cpu"), st.CSC)
     assert tio.from_scipy(m, device="cpu").data.device.type == "cpu"
     with pytest.raises(ValueError, match="unknown format"):
-        tio.from_scipy(m, fmt="bsr")
+        tio.from_scipy(m, fmt="bsr", device="cpu")
     with pytest.raises(ValueError, match="unknown format"):
-        tio.from_arrays({"format": "ell", "shape": (2, 2)})
+        tio.from_arrays({"format": "ell", "shape": (2, 2)}, device="cpu")
     with pytest.raises(TypeError, match="unsupported"):
         tio.to_scipy(st.csr_to_well(back))
 
@@ -113,7 +113,7 @@ def test_jax_well_carried_across(which):
     jw = j_csr_to_well(j)
     kind, arrays, shape, _ = jax_arrays(jw)
     assert kind == "well" and ("vals_im" in arrays) == (which == "c64")
-    tw = jax_state.from_arrays(kind, arrays, shape)
+    tw = jax_state.from_arrays(kind, arrays, shape, device="cpu")
     assert isinstance(tw, WELL) and tw.shape == tuple(j.shape)
     assert tw.vals.dtype == to_port(j).data.dtype
     np.testing.assert_array_equal(np_of(tw.todense()), np_of(j.todense()))
@@ -135,7 +135,7 @@ def test_jax_well64_carried_across():
     jw = jk64.csr_to_well64(j)
     kind, arrays, shape, _ = jax_arrays(jw)
     assert kind == "well64"
-    tw = jax_state.from_arrays(kind, arrays, shape)
+    tw = jax_state.from_arrays(kind, arrays, shape, device="cpu")
     assert isinstance(tw, WELL64) and tw.vals.dtype == torch.float64
     np.testing.assert_allclose(np_of(tw.todense()), np_of(j.todense()),
                                rtol=2.0 ** -46, atol=0)
@@ -148,7 +148,7 @@ def test_jax_well64_carried_across():
 def test_jax_state_well_errors():
     with pytest.raises(ValueError, match=r"missing leaves \['vals_lo'\]"):
         jax_state.from_arrays("well64", {"bases": 0, "idx": 0, "vals": 0},
-                              (4, 4))
+                              (4, 4), device="cpu")
     assert "well" in jax_state.KINDS and "well64" in jax_state.KINDS
     with pytest.raises(TypeError, match="unknown format"):
-        jax_state.to_arrays(st.csr_to_well(st.eye(3)))
+        jax_state.to_arrays(st.csr_to_well(st.eye(3, device="cpu")))

@@ -155,7 +155,7 @@ def test_slots_in_bounds_flags_a_corrupt_layout():
     WELL whose slots point past its arrays or columns."""
     import dataclasses
 
-    w = csr_to_well(st.eye(40, dtype=torch.float64))
+    w = csr_to_well(st.eye(40, dtype=torch.float64, device="cpu"))
     assert w.slots_in_bounds
     assert not dataclasses.replace(w, cols=w.cols + 40).slots_in_bounds
     assert not dataclasses.replace(w, cols=w.cols - 1).slots_in_bounds
@@ -253,7 +253,7 @@ def test_well_spmv_plain_against_csr(case):
     if case == "skewed_300x200":
         t = to_port(skewed_csr(rng, 300, 200))
     elif case == "empty_100x100":
-        t = st.zeros((100, 100), dtype=torch.float64)
+        t = st.zeros((100, 100), dtype=torch.float64, device="cpu")
     else:
         t = to_port(random_csr(rng, 8, 5000, 0.01))
     w = csr_to_well(t)
@@ -358,7 +358,7 @@ def test_f64_runs_on_the_plain_path():
 
 
 def test_refuses_other_devices():
-    w = csr_to_well(st.eye(4, dtype=torch.float64))
+    w = csr_to_well(st.eye(4, dtype=torch.float64, device="cpu"))
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
         tk.well_spmv(w.to("meta"), torch.ones(4, device="meta"))
 
