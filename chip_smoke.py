@@ -10,8 +10,11 @@ NVIDIA GPU:
 3. Kernel parity: each kernel against its plain PyTorch version on the card,
    at the shapes the main paths use and at harder ones (unaligned,
    rectangular, 3D with +-46,656 offsets; for WELL a 3,000,000 x 2,000,000
-   matrix with skewed rows; kernel D at m = 5, 16, 17, 33, 40 across its
-   16-RHS tile edge, on both operators in both types).  Max relative error
+   matrix with skewed rows; kernel D at m = 5, 16, 17, 33, 40 and 80 on
+   both operators in both types, and at m = 8, 32, 64, 80 in both layouts
+   on the permuted one; at m = 16 and 80 every column of kernel D bitwise
+   kernel C on that column, a second call bitwise the first, and a digest
+   of the result to compare two builds).  Max relative error
    max|y - y_plain| / max|y_plain| <= 1e-5 in f32 and 1e-12 in f64 for the
    SpMV and SpMM kernels and the 7-step f64 chain, <= 1e-4 for 50 chained
    f32 steps; the f64 WELL SpMV also meets ||y - y_csr|| / ||y_csr|| <=
@@ -28,7 +31,11 @@ NVIDIA GPU:
    24, L2 flushed before each call), in f32 and f64, with GB/s, beside the
    card's name and power limit, and each kernel's bound: the larger of its
    bytes (each input read once, each output written once) over 3.35 TB/s
-   and its flops over 67 (f32) or 34 (f64) TFLOP/s.
+   and its flops over 67 (f32) or 34 (f64) TFLOP/s.  Kernel D also at
+   FEAST's m = 80 and on the stencil-order 2048**2 operator packed as WELL
+   (each with its plain version, cuSPARSE SpMM, well_spmm_planes'
+   ``planes_ms``, the copy of X that it holds, and the gather floor of a
+   numbering without reuse), and at m = 1, 5, 8 and 96 in both layouts.
 6. Slice-2 main path at full size, with the WELL kernels' launch counts set
    to 0 before and read after: the 2048**2 triples with their unknowns
    relabelled by a seeded permutation (an unstructured numbering) ->
@@ -52,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import statistics
@@ -74,7 +82,9 @@ HBM_BYTES_PER_S = 3.35e12
 # (PERF.md §6: measured by this script before the redesign, on an NVIDIA
 # H100 80GB HBM3 at 700.00 W), printed beside this run's
 PREVIOUS_MS = {"well_spmv torch.float32": 0.1704, "well_spmv torch.float64": 0.3070,
-          "dia_spmv_chain torch.float32": 2.6613}
+               "dia_spmv_chain torch.float32": 2.6613,
+               "well_spmm torch.float32": 1.1720,
+               "well_spmm torch.float64": 2.0543}
 
 
 def require(cond, msg):
@@ -96,6 +106,15 @@ def max_err(y, ref):
     """(max |y - ref|, max |y - ref| / max |ref|) as floats."""
     err = float((y - ref).abs().max())
     return err, err / max(float(ref.abs().max()), 1e-300)
+
+
+def digest(t) -> str:
+    """A hash of a tensor's bytes: equal digests from two runs with the
+    same seed mean bitwise equal results."""
+    import torch
+
+    data = t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+    return hashlib.blake2b(data.numpy(), digest_size=8).hexdigest()
 
 
 def main() -> None:
@@ -307,10 +326,27 @@ def main() -> None:
         parity_abs[f"well_spmm {label} m={m}"
                    + (" column-major" if column_major else "")] = err
 
-    # m crosses kernel D's 16-RHS tile edge: below, at, one past, two
-    # tiles and one past, and a ragged third tile.  The m of the earlier
-    # checks draw from wgen as before, the rest from xgen.
+    def check_columns(label, w, m):
+        """Kernel D sums each entry over its row's slots in slot order from
+        zero, as kernel C does: column t of well_spmm(w, X) is bitwise
+        well_spmv(w, X[:, t]), and a second call is bitwise the first.
+        The digest of Y's bytes tells two builds' results apart."""
+        x = randn(m * w.shape[1], w.dtype, xgen).reshape(w.shape[1], m)
+        y = well_spmm(w, x)
+        same = all(torch.equal(y[:, t], well_spmv(w, x[:, t]))
+                   for t in range(m))
+        again = torch.equal(well_spmm(w, x), y)
+        print(f"phase 3 well_spmm {label} m={m}: every column bitwise "
+              f"well_spmv {same}, repeated call bitwise equal {again}, "
+              f"digest {digest(y)}", flush=True)
+        require(same, f"well_spmm {label} m={m} differs from well_spmv")
+        require(again, f"well_spmm {label} m={m} is not repeatable")
+
+    # m on both sides of kernel D's lane-group and tile widths (16 f64 /
+    # 32 f32 values a 128-byte run), up to FEAST's 80.  The m of the
+    # earlier checks draw from wgen as before, the rest from xgen.
     spmm_ms = (5, 16, 17, 33, 40)
+    wide_ms = (8, 32, 64, 80)
     for dtype in (f32, f64):
         w = st.csr_to_well(permuted_csr(2048, dtype))
         check_well_spmv(f"permuted 2048^2 {dtype}", w)
@@ -322,6 +358,12 @@ def main() -> None:
             if m not in first:
                 check_well_spmm(f"permuted 2048^2 {dtype}", w, m,
                                 generator=xgen)
+        for m in wide_ms:
+            for column_major in (False, True):
+                check_well_spmm(f"permuted 2048^2 {dtype}", w, m,
+                                column_major=column_major, generator=xgen)
+        for m in (16, 80):
+            check_columns(f"permuted 2048^2 {dtype}", w, m)
         del w
 
     # K7's contract: f64 WELL against f64 CSR SpMV, norm-wise
@@ -365,10 +407,12 @@ def main() -> None:
             w32, vals=w32.vals.to(f64))
         if dtype == f64:
             check_well_spmv(f"skewed {nr_s}x{nc_s} {dtype}", w, xgen)
-        for m in spmm_ms:
+        for m in spmm_ms + (80,):
             if (dtype, m) != (f32, 5):
                 check_well_spmm(f"skewed {nr_s}x{nc_s} {dtype}", w, m,
                                 generator=xgen)
+        for m in (16, 80):
+            check_columns(f"skewed {nr_s}x{nc_s} {dtype}", w, m)
         del w
     del w32
     torch.cuda.synchronize()
@@ -570,11 +614,53 @@ def main() -> None:
               f"0.0532 ms/step)", flush=True)
         del a, x
 
+    def median_ms(f):
+        return statistics.median(samples_ms(f) + samples_ms(f))
+
+    def time_spmm(name, label, w, lib, nnz, xp):
+        """Kernel D on one operator and X: the column-major well_spmm is
+        kernel D alone (it reads X (nc, m) and writes Y (nr, m) as they
+        lie); well_spmm_planes (planes_ms) adds the copy of its (m, nc)
+        planes to that layout.  The library is cuSPARSE SpMM with X (n, m)
+        row- and column-major, the faster.  Bytes: the A stream once
+        (slots (itemsize + 4) + slice_ptr), X and Y; the gather floor of a
+        numbering without reuse counts X once per slot instead."""
+        m, item = xp.shape[0], w.vals.element_size()
+        xc = xp.T.contiguous()
+        xcm = xp.T  # (n, m) with column-major strides
+        k_ms, p_ms, l_row = in_turns(lambda: well_spmm_planes_plain(w, xp),
+                                     lambda: well_spmm(w, xc),
+                                     lambda: lib @ xc)
+        l_col = median_ms(lambda: lib @ xcm)
+        planes_ms = median_ms(lambda: well_spmm_planes(w, xp))
+        copy_ms = median_ms(lambda: xp.T.contiguous())
+        a_bytes = w.cols.shape[0] * (item + 4) + w.slice_ptr.numel() * 8
+        mbytes = a_bytes + (w.shape[0] + w.shape[1]) * m * item
+        gather_ms = (a_bytes + w.cols.shape[0] * m * item
+                     + w.shape[0] * m * item) / HBM_BYTES_PER_S * 1e3
+        record(name, w.dtype, k_ms, p_ms, min(l_row, l_col), mbytes,
+               2 * nnz * m,
+               f"torch.sparse_csr_tensor @ X (cuSPARSE SpMM), X (n, {m}) "
+               f"{'row' if l_row <= l_col else 'column'}-major, the faster")
+        t = times[f"{name} {w.dtype}"]
+        t.update(planes_ms=planes_ms, copy_ms=copy_ms,
+                 gather_floor_ms=gather_ms, case=f"{label} m={m} {w.dtype}")
+        print(f"phase 5 well_spmm {label} {w.dtype} m={m}: well_spmm_planes (X "
+              f"copied to (nc, m), then kernel D) {planes_ms:.4f} ms, of "
+              f"which the copy alone {copy_ms:.4f} ms; "
+              f"library X row-major {l_row:.4f} ms, column-major "
+              f"{l_col:.4f} ms; {mbytes / 1e6:.1f} MB per call; gather "
+              f"floor (X once a slot) {gather_ms:.4f} ms", flush=True)
+        return t
+
     # kernels C and D on the permuted 2048**2 operator.  Bytes: the stored
     # slots (value + int32 column) + slice_ptr + x + y, for D the A stream
     # once plus X and Y; nnz (itemsize + 4) is printed beside them so the
-    # padding's share shows.
-    m_rhs = 16
+    # padding's share shows.  Kernel D also at FEAST's m = 80, at small m,
+    # and on the stencil-order operator packed as WELL, with inputs from
+    # xgen so that phase 6 keeps its draws.
+    m_rhs, m_wide = 16, 80
+    readings, more_m = [], {}
     for dtype in (f32, f64):
         csr = permuted_csr(g, dtype)
         w = st.csr_to_well(csr)
@@ -593,32 +679,38 @@ def main() -> None:
         print(f"phase 5 well_spmv {dtype}: {nbytes / 1e6:.1f} MB per call "
               f"(slots {a_bytes / 1e6:.1f} MB, nnz * (itemsize + 4) "
               f"{nnz * (item + 4) / 1e6:.1f} MB)", flush=True)
+        del x
         xp = randn(m_rhs * n, dtype, wgen).reshape(m_rhs, n)
-        xc = xp.T.contiguous()
-        xcm = xp.T  # (n, m) with column-major strides
-        mbytes = a_bytes + 2 * m_rhs * n * item
-        # kernel D alone is the column-major well_spmm: it reads X (nc, m)
-        # and writes Y (nr, m) as they lie; well_spmm_planes adds the copy
-        # of its planes to that layout
-        k_ms, p_ms, l_row = in_turns(lambda: well_spmm_planes_plain(w, xp),
-                                     lambda: well_spmm(w, xc),
-                                     lambda: lib_c @ xc)
-        l_col = statistics.median(samples_ms(lambda: lib_c @ xcm)
-                                  + samples_ms(lambda: lib_c @ xcm))
-        planes_ms = statistics.median(
-            samples_ms(lambda: well_spmm_planes(w, xp))
-            + samples_ms(lambda: well_spmm_planes(w, xp)))
-        record("well_spmm", dtype, k_ms, p_ms, min(l_row, l_col), mbytes,
-               2 * nnz * m_rhs,
-               f"torch.sparse_csr_tensor @ X (cuSPARSE SpMM), X (n, {m_rhs}) "
-               f"{'row' if l_row <= l_col else 'column'}-major, the faster")
-        times[f"well_spmm {dtype}"]["planes_ms"] = planes_ms
-        print(f"phase 5 well_spmm {dtype} m={m_rhs}: well_spmm_planes (X "
-              f"copied to (nc, m), then kernel D) {planes_ms:.4f} ms; "
-              f"library X row-major {l_row:.4f} ms, column-major "
-              f"{l_col:.4f} ms; {mbytes / 1e6:.1f} MB per call", flush=True)
-        del w, x, xp, xc, xcm, lib_c
-    torch.cuda.empty_cache()
+        time_spmm("well_spmm", "permuted", w, lib_c, nnz, xp)
+        del xp
+        xp = randn(m_wide * n, dtype, xgen).reshape(m_wide, n)
+        readings.append(dict(time_spmm(f"well_spmm m={m_wide}", "permuted",
+                                       w, lib_c, nnz, xp)))
+        del xp
+        torch.cuda.empty_cache()
+        # small m, and m = 96, past the five chunks a lane holds in f64
+        for m in (1, 5, 8, 96):
+            xp = randn(m * n, dtype, xgen).reshape(m, n)
+            xc = xp.T.contiguous()
+            col_ms = median_ms(lambda: well_spmm(w, xc))
+            planes_ms = median_ms(lambda: well_spmm_planes(w, xp))
+            more_m[f"permuted m={m} {dtype}"] = {"ms": col_ms,
+                                                 "planes_ms": planes_ms}
+            print(f"phase 5 time [{card}] well_spmm permuted {dtype} m={m}: "
+                  f"kernel {col_ms:.4f} ms, well_spmm_planes {planes_ms:.4f} "
+                  f"ms", flush=True)
+            del xp, xc
+        del w, lib_c
+        csr = poisson_2d(g, dtype=dtype, device=dev)
+        w = st.csr_to_well(csr)
+        lib_s = library_csr(csr)
+        nnz = csr.nnz
+        del csr
+        xp = randn(m_rhs * n, dtype, xgen).reshape(m_rhs, n)
+        readings.append(dict(time_spmm("well_spmm stencil", "stencil order",
+                                       w, lib_s, nnz, xp)))
+        del w, lib_s, xp
+        torch.cuda.empty_cache()
 
     # ------------------------------------ 6. slice-2 main path, full size
     torch.cuda.reset_peak_memory_stats(dev)
@@ -675,7 +767,7 @@ def main() -> None:
     _, spmm_rel = max_err(y, ref)
     print(f"phase 6 well_spmm_planes f64 m={m_rhs}: {spmm_s * 1e3:.3f} ms "
           f"(first call), max rel err against plain {spmm_rel:.3e} (tol "
-          f"1e-12)", flush=True)
+          f"1e-12), digest {digest(y)}", flush=True)
     require(y.shape == (m_rhs, n) and spmm_rel <= 1e-12, "16-RHS block")
     del xp, y, ref, w, csr
 
@@ -737,7 +829,18 @@ def main() -> None:
                     "shape": shape})
         if "planes_ms" in t:
             out["planes_ms"] = t["planes_ms"]
+            out["copy_ms"] = t["copy_ms"]
+            out["gather_floor_ms"] = t["gather_floor_ms"]
         return out
+
+    spmm_entry = entry_of(
+        "well_spmm", f64, f"{PALLAS_WELL}:335", "well_spmm",
+        parity_abs[f"well_spmm permuted 2048^2 {f64} m=16"],
+        "permuted poisson 2048^2 f64, m=16, kernel D alone (column-major "
+        "X); planes_ms adds well_spmm_planes' copy, L2 flushed",
+        (f"{PALLAS_WELL}:385", f"{PALLAS_WELL64}:284"))
+    spmm_entry["readings"] = readings
+    spmm_entry["more_m"] = more_m
 
     print(json.dumps({"kernels": [
         entry_of("dia_spmv", f32, f"{PALLAS}:133", "dia_spmv",
@@ -750,12 +853,7 @@ def main() -> None:
                  parity_abs[f"well_spmv permuted 2048^2 {f64}"],
                  "permuted poisson 2048^2 f64, L2 flushed",
                  (f"{PALLAS_WELL64}:195",)),
-        entry_of("well_spmm", f64, f"{PALLAS_WELL}:335", "well_spmm",
-                 parity_abs[f"well_spmm permuted 2048^2 {f64} m=16"],
-                 "permuted poisson 2048^2 f64, m=16, kernel D alone "
-                 "(column-major X); planes_ms adds well_spmm_planes' copy, "
-                 "L2 flushed",
-                 (f"{PALLAS_WELL}:385", f"{PALLAS_WELL64}:284")),
+        spmm_entry,
     ], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

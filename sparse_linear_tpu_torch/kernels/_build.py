@@ -38,7 +38,7 @@ _CHAIN_ARGS = [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int,
                ctypes.c_double, ctypes.c_int, _P]
 _WELL_SPMV_ARGS = [_P, _P, _P, _P, _P, _I64, ctypes.c_int, _P]
 _WELL_SPMM_ARGS = [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_int,
-                   _P]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
 _SIGNATURES = {
     "slt_dia_spmv_f32": _SPMV_ARGS,
     "slt_dia_spmv_f64": _SPMV_ARGS,

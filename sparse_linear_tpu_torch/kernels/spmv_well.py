@@ -7,17 +7,34 @@ public names.
   ``_kernel`` / ``_well_spmv_real`` and, in f64, the double-float
   ``_kernel_df64`` / ``_well_spmv_df64`` of ``spmv_well64``.
 * :func:`well_spmm_planes` and :func:`well_spmm` (kernel D,
-  ``well_spmm_kernel<T>``) replace the resident-X ``_spmm_kernel`` /
-  ``_spmm_resident`` and the windowed ``_spmm_kernel_win`` /
-  ``_spmm_windowed`` (one op with two memory plans on the TPU) and, in
-  f64, ``_kernel_spmm_df64`` / ``_well_spmm_df64``.  Kernel D reads X as
-  (nc, m) row-major, the layout of the column-major ``well_spmm``, where
-  the m values one slot gathers are contiguous; ``well_spmm_planes``
-  copies its (m, nc) planes to that layout first (on an NVIDIA H100 80GB
-  HBM3 at 700.00 W, permuted 2048**2 operator, m = 16, the kernel
-  gathering plane-major X took 4-7x as long as this layout plus the
-  copy).  Y is written through strides in either
-  layout.
+  ``well_spmm_kernel<T, V, G, C>``) replace the resident-X
+  ``_spmm_kernel`` / ``_spmm_resident`` and the windowed
+  ``_spmm_kernel_win`` / ``_spmm_windowed`` (one op with two memory plans
+  on the TPU) and, in f64, ``_kernel_spmm_df64`` / ``_well_spmm_df64``.
+  Kernel D reads X as (nc, m) row-major, the layout of the column-major
+  ``well_spmm``, where the m values one slot gathers are contiguous;
+  ``well_spmm_planes`` copies its (m, nc) planes to that layout first (on
+  an NVIDIA H100 80GB HBM3 at 700.00 W, permuted 2048**2 operator, m = 16,
+  the kernel gathering plane-major X took 4-7x as long as this layout
+  plus the copy).  Y is written through strides in either layout.
+
+  What bounds kernel D on that card is bytes: counted once (A's slots, X,
+  Y) the permuted 2048**2 operator moves 1326 MB at m = 16 in f64 (0.396
+  ms at 3.35 TB/s) and 5621 MB at m = 80 (1.678 ms); but on a numbering
+  without locality every slot gathers its own run of X, so the floor is
+  about 1.04 ms (m = 16) and 4.9 ms (m = 80).  One warp takes one
+  32-row slice and stages its slots in shared memory once, so A is read
+  from device memory once per call whatever m; its lanes lie across the
+  right-hand sides, a group of them on one row, so each gather is one
+  coalesced run of up to 128 bytes in 16-byte vectors; a plane-major Y is
+  staged so that each plane's 32 rows go out as one run.
+  :func:`_spmm_plan` picks the lanes a row and chunks a lane from m (a
+  pure function of m, the item size, alignment and layout, never a
+  fallback): the fewest lanes that cover m, so small m keeps every lane
+  busy, and up to five chunks a lane (m = 80 in f64, 160 in f32; two
+  plane-major) before it tiles m.  Each entry is summed over its row's
+  slots in slot order from zero, as kernel C sums, so column t of
+  ``well_spmm(a, X)`` is bitwise ``well_spmv(a, X[:, t])``.
 
 Output dtype follows the JAX package: x is cast to the matrix's dtype, and
 the result is complex when A or x is.  A wrapper takes the plain PyTorch
@@ -132,23 +149,66 @@ def well_spmv(a, x) -> torch.Tensor:
 well_spmv.launches = 0
 
 
+# Kernel D's geometry (csrc/well_spmv.cu): a group of lanes takes one row
+# of X, at most _ROW_BYTES of it a chunk; a lane holds at most
+# _MAX_CHUNKS chunks (plane-major _MAX_CHUNKS_PLANES, which bounds the
+# shared-memory Y stage), and the rest of m is tiled.  A warp stages at
+# most _MAX_STAGE_SLOTS slots a row of its slice at a time.
+_ROW_BYTES = 128
+_MAX_CHUNKS = 5
+_MAX_CHUNKS_PLANES = 2
+_MAX_STAGE_SLOTS = 32
+
+
+def _spmm_plan(m: int, itemsize: int, vector: bool,
+               planes: bool) -> tuple[int, int]:
+    """(lanes a row, chunks a lane) of kernel D for ``m`` right-hand
+    sides.  ``vector``: X (and a column-major Y) can be read in 16-byte
+    vectors (m * itemsize a multiple of 16, X 16-byte aligned); else each
+    lane takes one value.  The lanes of a row are the fewest
+    (a power of two) that cover m, up to one 128-byte run; past that a
+    lane takes more chunks (vector lanes only), and past those the kernel
+    tiles m."""
+    per_lane = 16 // itemsize if vector else 1
+    lanes_max = _ROW_BYTES // (per_lane * itemsize)
+    units = -(-m // per_lane)
+    if units <= lanes_max:
+        return 1 << (units - 1).bit_length(), 1
+    cap = (_MAX_CHUNKS_PLANES if planes else _MAX_CHUNKS) if vector else 1
+    return lanes_max, min(-(-units // lanes_max), cap)
+
+
+def _stage_slots(a) -> int:
+    """Slots a row that kernel D stages at a time: the mean slice width,
+    so that a typical slice is staged in one round, at most
+    _MAX_STAGE_SLOTS (longer rows take several rounds)."""
+    mean = -(-int(a.cols.shape[0]) // max(a.n_slices * SLICE_ROWS, 1))
+    return min(max(mean, 1), _MAX_STAGE_SLOTS)
+
+
 def _launch_spmm(name, a, xt, y, y_row, y_rhs) -> None:
     """Kernel D on ``xt``, X as (nc, m), into ``y`` written through the
-    strides (y_row, y_rhs) between rows of A and right-hand sides.  X is
-    copied to row-major first unless it already is."""
+    strides (y_row, y_rhs) between rows of A and right-hand sides: y_row
+    1 (plane-major) or y_rhs 1 (column-major).  X is copied to row-major
+    first unless it already is."""
     _check_layout(name, a)
     nr, m = a.shape[0], xt.shape[1]
     if nr == 0 or m == 0:
         return
     xt = xt.contiguous()
+    item = y.element_size()
+    planes = y_row == 1
+    vector = (m * item % 16 == 0 and xt.data_ptr() % 16 == 0
+              and (planes or (y_rhs == 1 and y.data_ptr() % 16 == 0)))
+    lanes, chunks = _spmm_plan(m, item, vector, planes)
     device = y.device
     vals = a.vals.contiguous()
     lib = _build.load_library()
     fn = lib.slt_well_spmm_f32 if y.dtype == torch.float32 else lib.slt_well_spmm_f64
     code = fn(a.slice_ptr.contiguous().data_ptr(),
               a.cols.contiguous().data_ptr(), vals.data_ptr(), xt.data_ptr(),
-              y.data_ptr(), nr, m, y_row, y_rhs, device.index,
-              _stream(device))
+              y.data_ptr(), nr, m, y_row, y_rhs, int(vector), lanes, chunks,
+              _stage_slots(a), device.index, _stream(device))
     _build.check(lib, code, f"{name} launch")
     well_spmm.launches += 1
 

@@ -6,8 +6,8 @@ carries f64 as paired hi/lo f32 planes with compensated (TwoProd/TwoSum)
 accumulation at ~1e-13 relative.  Hopper has native f64: :class:`WELL64` is
 a WELL whose values are float64, and its products run the float64
 instantiations of the same kernels as the f32 path (kernel C
-``well_spmv_kernel<double>``, kernel D ``well_spmm_kernel<double>``).  The
-contract kept from the JAX module: ||y - y_csr|| / ||y_csr|| <= 1e-13
+``well_spmv_kernel<double>``, kernel D ``well_spmm_kernel<double, ...>``).
+The contract kept from the JAX module: ||y - y_csr|| / ||y_csr|| <= 1e-13
 against f64 CSR SpMV; native f64 sums reach ~1e-16 per entry.
 """
 

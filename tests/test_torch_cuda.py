@@ -217,12 +217,14 @@ def test_well_spmv_kernel_matches_plain(dev, dtype, case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("m", [1, 5, 16, 17, 33, 40])
+@pytest.mark.parametrize("m", [1, 5, 8, 16, 17, 32, 33, 40, 64, 80])
 @pytest.mark.parametrize("case", WELL_CASES)
 def test_well_spmm_kernel_matches_plain(dev, dtype, m, case):
-    """Plane-major and column-major, m below, at and past the 16-RHS tile
-    (the last tile masked), with strided planes, on empty rows, a partial
-    last slice, skewed long rows and rectangular shapes."""
+    """Plane-major and column-major, m from one lane a row to five chunks a
+    lane (m = 80 in f64) and past them (tiled), vector and scalar lanes
+    (m * itemsize a multiple of 16 or not), with strided planes, on empty
+    rows, a partial last slice, skewed long rows (staged in several
+    rounds) and rectangular shapes."""
     a = _well_case(case, dtype, dev)
     w = csr_to_well(a)
     xp = torch.as_tensor(np.random.default_rng(5).standard_normal(
@@ -244,15 +246,20 @@ def test_well_spmm_kernel_matches_plain(dev, dtype, m, case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("kernel", ["well_spmv", "dia_spmv_chain"])
+@pytest.mark.parametrize("kernel", ["well_spmv", "dia_spmv_chain",
+                                    "well_spmm"])
 def test_redesigned_kernels_repeat_bitwise(dev, dtype, kernel):
-    """Kernels C and B, redesigned for the H100, give bitwise the same
+    """Kernels C, B and D, redesigned for the H100, give bitwise the same
     result twice on one input: each row sums in a fixed order, with no
     atomics."""
     rng = np.random.default_rng(6)
     if kernel == "well_spmv":
         a = csr_to_well(_well_case("skewed_3000x5000", dtype, dev))
         run = lambda x: well_spmv(a, x)  # noqa: E731
+    elif kernel == "well_spmm":
+        a = csr_to_well(_well_case("skewed_3000x5000", dtype, dev))
+        run = lambda x: well_spmm(a, x.reshape(-1, 1).expand(  # noqa: E731
+            -1, 40) * torch.arange(1, 41, dtype=dtype, device=dev))
     else:
         a = poisson_2d(45, dtype=dtype, fmt="dia", device=dev)
         run = lambda x: dia_spmv_chain(a, x, 7, alpha=0.25)  # noqa: E731
@@ -262,6 +269,58 @@ def test_redesigned_kernels_repeat_bitwise(dev, dtype, kernel):
     y2 = run(x)
     torch.cuda.synchronize()
     assert torch.equal(y1, y2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m", [16, 80])
+@pytest.mark.parametrize("case", ["permuted_64", "skewed_3000x5000"])
+def test_well_spmm_columns_are_kernel_c(dev, dtype, m, case):
+    """Kernel D sums every entry over its row's slots in slot order from
+    zero with one fma a slot, as kernel C does: each column of
+    ``well_spmm(w, X)`` is bitwise ``well_spmv(w, X[:, t])``, in both
+    layouts, across staging rounds of the skewed case's long rows."""
+    w = csr_to_well(_well_case(case, dtype, dev))
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (w.shape[1], m)), dtype=dtype, device=dev)
+    y = well_spmm(w, x)
+    yp = well_spmm_planes(w, x.T.contiguous())
+    torch.cuda.synchronize()
+    for t in range(m):
+        col = well_spmv(w, x[:, t])
+        assert torch.equal(y[:, t], col), t
+        assert torch.equal(yp[t], col), t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_well_spmm_odd_x_layouts(dev, dtype):
+    """X that kernel D cannot read in 16-byte vectors -- a column slice
+    (copied to row-major, m * itemsize not a multiple of 16), a row-major
+    X whose base is not 16-byte aligned, an odd m of planes -- takes the
+    scalar lanes: the result matches the plain version, and nothing
+    outside X is read (the values around it are NaN, which would show)."""
+    w = csr_to_well(_well_case("permuted_64", dtype, dev))
+    nc = w.shape[1]
+    rng = np.random.default_rng(8)
+    big = torch.as_tensor(rng.standard_normal((nc, 9)), dtype=dtype,
+                          device=dev)
+    xs = big[:, 2:7]  # strided column slice, m = 5
+    ref = well_spmm_planes_plain(w, xs.T)
+    assert _rel(well_spmm(w, xs), ref.T) <= RTOL[dtype]
+    for m in (2, 4, 8):
+        flat = torch.full((nc * m + 32,), float("nan"), dtype=dtype,
+                          device=dev)
+        # one element past a 16-byte boundary, NaN on both sides
+        xm = flat[1:1 + nc * m].view(nc, m)
+        assert xm.data_ptr() % 16 != 0
+        xm.copy_(big[:, :m])
+        y = well_spmm(w, xm)
+        assert bool(torch.isfinite(y).all())
+        assert _rel(y, well_spmm_planes_plain(w, xm.T).T) <= RTOL[dtype]
+    xp = big[:, :7].T.contiguous()  # odd m of planes
+    assert _rel(well_spmm_planes(w, xp), well_spmm_planes_plain(w, xp)) \
+        <= RTOL[dtype]
 
 
 def test_well_kernels_f64_contract_and_spgemm(dev):

@@ -284,6 +284,75 @@ def test_well_spmm_planes_f32_matches_jax(p32, force):
     assert tk.well_planes_width(tw) == N
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+def test_well_spmm_planes_m40_matches_jax_resident(dtype):
+    """m = 40, a width that takes kernel D three chunks a lane (and a
+    second tile plane-major) on the card, against the JAX package's
+    resident route (in f64 its WELL with f64 values, which interpret mode
+    takes); the port's f64 entry is ``well_spmm64_planes``."""
+    j = permuted_poisson(G, dtype)
+    x = np.random.default_rng(13).standard_normal((40, N)).astype(dtype)
+    yj = jk.well_spmm_planes(j_csr_to_well(j), jnp.asarray(x),
+                             _force="resident")
+    if dtype == np.float64:
+        tw = tk64.csr_to_well64(to_port(j))
+        yt = tk64.well_spmm64_planes(tw, torch.as_tensor(x))
+        tol = 1e-12
+    else:
+        tw = csr_to_well(to_port(j))
+        yt = tk.well_spmm_planes(tw, torch.as_tensor(x))
+        tol = 1e-5
+    assert yt.shape == (40, N) and yt.dtype == tw.vals.dtype
+    assert _rel(yt, yj) <= tol
+    assert _rel(tk.well_spmm(tw, torch.as_tensor(x.T)).T, yj) <= tol
+
+
+@pytest.mark.parametrize("m, itemsize, vector, planes, plan", [
+    (1, 8, False, False, (1, 1)),    # one lane a row: 32 rows at once
+    (2, 8, True, False, (1, 1)),     # one double2 a row
+    (5, 8, False, True, (8, 1)),     # odd m: scalar, 8 lanes, 5 busy
+    (8, 8, True, False, (4, 1)),
+    (16, 8, True, False, (8, 1)),    # one 128-byte run a row
+    (16, 4, True, True, (4, 1)),
+    (17, 8, False, False, (16, 1)),  # scalar: 16 lanes, m tiled
+    (33, 4, False, False, (32, 1)),
+    (40, 8, True, False, (8, 3)),
+    (80, 8, True, False, (8, 5)),    # FEAST's m in one pass
+    (80, 8, True, True, (8, 2)),     # plane-major: the Y stage caps it
+    (80, 4, True, False, (8, 3)),
+    (96, 8, True, False, (8, 5)),    # past five chunks: m tiled
+    (160, 4, True, False, (8, 5)),
+])
+def test_spmm_plan(m, itemsize, vector, planes, plan):
+    """Kernel D's geometry by m: the fewest lanes (a power of two) that
+    cover a row, up to one 128-byte run; then more chunks a lane."""
+    assert tk._spmm_plan(m, itemsize, vector, planes) == plan
+    lanes, chunks = plan
+    per_lane = 16 // itemsize if vector else 1
+    assert lanes * per_lane * itemsize <= 128
+    assert lanes * per_lane * chunks >= m or chunks == (
+        tk._MAX_CHUNKS_PLANES if planes else tk._MAX_CHUNKS) or not vector
+
+
+def test_spmm_stage_slots():
+    """Slots a row that kernel D stages at a time: the mean slice width,
+    1 for an empty matrix, at most 32 (longer rows take rounds)."""
+    def mean_width(w):
+        return int(np.ceil(w.cols.shape[0] / (w.n_slices * 32)))
+
+    rng = np.random.default_rng(14)
+    w = csr_to_well(to_port(permuted_poisson(G, np.float32)))
+    assert tk._stage_slots(w) == mean_width(w) == w.c_max == 5
+    skew = csr_to_well(to_port(skewed_csr(rng, 300, 200)))
+    assert tk._stage_slots(skew) == mean_width(skew) < skew.c_max
+    dense = csr_to_well(to_port(random_csr(rng, 64, 64, 0.9)))
+    assert mean_width(dense) > 32 and tk._stage_slots(dense) == 32
+    empty = csr_to_well(st.zeros((100, 50), dtype=torch.float32,
+                                 device="cpu"))
+    assert tk._stage_slots(empty) == 1
+
+
 def test_well_spmm_complex_and_vector():
     rng = np.random.default_rng(9)
     j = permuted_poisson(G, np.complex64)
