@@ -11,10 +11,10 @@ NVIDIA GPU:
    at the shapes the main paths use and at harder ones (unaligned,
    rectangular, 3D with +-46,656 offsets; for WELL a 3,000,000 x 2,000,000
    matrix with skewed rows; kernel D at m = 5, 16, 17, 33, 40 and 80 on
-   both operators in both types, and at m = 8, 32, 64, 80 in both layouts
-   on the permuted one; at m = 16 and 80 every column of kernel D bitwise
-   kernel C on that column, a second call bitwise the first, and a digest
-   of the result to compare two builds).  Max relative error
+   both operators in both types, and at m = 8, 32, 64, 80, 96, 168 in both
+   layouts on the permuted one; at m = 16 and 80 every column of kernel D
+   bitwise kernel C on that column, a second call bitwise the first, and a
+   digest of the result to compare two builds).  Max relative error
    max|y - y_plain| / max|y_plain| <= 1e-5 in f32 and 1e-12 in f64 for the
    SpMV and SpMM kernels and the 7-step f64 chain, <= 1e-4 for 50 chained
    f32 steps; the f64 WELL SpMV also meets ||y - y_csr|| / ||y_csr|| <=
@@ -34,8 +34,11 @@ NVIDIA GPU:
    and its flops over 67 (f32) or 34 (f64) TFLOP/s.  Kernel D also at
    FEAST's m = 80 and on the stencil-order 2048**2 operator packed as WELL
    (each with its plain version, cuSPARSE SpMM, well_spmm_planes'
-   ``planes_ms``, the copy of X that it holds, and the gather floor of a
-   numbering without reuse), and at m = 1, 5, 8 and 96 in both layouts.
+   ``planes_ms``, the copy of X that it holds, and, printed, the gather
+   floor of a numbering without reuse), and at m = 1, 5, 8 and 96 in both
+   layouts; and kernel D under the geometry ``_spmm_plan`` picks against
+   another on the same X (the scalar lanes against the widest, plane-major
+   m = 80 at two chunks a lane against one pass), bitwise equal.
 6. Slice-2 main path at full size, with the WELL kernels' launch counts set
    to 0 before and read after: the 2048**2 triples with their unknowns
    relabelled by a seeded permutation (an unstructured numbering) ->
@@ -58,6 +61,7 @@ or without the package beside this script, it fails before any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -132,6 +136,7 @@ def main() -> None:
     from sparse_linear_tpu_torch.entry import entry
     from sparse_linear_tpu_torch.formats.structured import DIA, csr_to_dia
     from sparse_linear_tpu_torch.kernels import _build
+    from sparse_linear_tpu_torch.kernels import spmv_well as spmv_well_module
     from sparse_linear_tpu_torch.kernels.spmv import dia_spmv
     from sparse_linear_tpu_torch.kernels.spmv_dia import (
         dia_spmv_chain,
@@ -343,10 +348,11 @@ def main() -> None:
         require(again, f"well_spmm {label} m={m} is not repeatable")
 
     # m on both sides of kernel D's lane-group and tile widths (16 f64 /
-    # 32 f32 values a 128-byte run), up to FEAST's 80.  The m of the
-    # earlier checks draw from wgen as before, the rest from xgen.
+    # 32 f32 values a 128-byte run), up to FEAST's 80 and past the five
+    # chunks a lane holds (96 and 168 in f64, 168 in f32: m tiled).  The m
+    # of the earlier checks draw from wgen as before, the rest from xgen.
     spmm_ms = (5, 16, 17, 33, 40)
-    wide_ms = (8, 32, 64, 80)
+    wide_ms = (8, 32, 64, 80, 96, 168)
     for dtype in (f32, f64):
         w = st.csr_to_well(permuted_csr(2048, dtype))
         check_well_spmv(f"permuted 2048^2 {dtype}", w)
@@ -644,7 +650,7 @@ def main() -> None:
                f"{'row' if l_row <= l_col else 'column'}-major, the faster")
         t = times[f"{name} {w.dtype}"]
         t.update(planes_ms=planes_ms, copy_ms=copy_ms,
-                 gather_floor_ms=gather_ms, case=f"{label} m={m} {w.dtype}")
+                 case=f"{label} m={m} {w.dtype}")
         print(f"phase 5 well_spmm {label} {w.dtype} m={m}: well_spmm_planes (X "
               f"copied to (nc, m), then kernel D) {planes_ms:.4f} ms, of "
               f"which the copy alone {copy_ms:.4f} ms; "
@@ -652,6 +658,63 @@ def main() -> None:
               f"{l_col:.4f} ms; {mbytes / 1e6:.1f} MB per call; gather "
               f"floor (X once a slot) {gather_ms:.4f} ms", flush=True)
         return t
+
+    @contextlib.contextmanager
+    def geometry(lanes, chunks):
+        """Kernel D launched with (lanes a row, chunks a lane) in place of
+        the geometry _spmm_plan picks."""
+        chosen = spmv_well_module._spmm_plan
+        spmv_well_module._spmm_plan = lambda *_: (lanes, chunks)
+        try:
+            yield
+        finally:
+            spmv_well_module._spmm_plan = chosen
+
+    def time_geometry(w):
+        """Kernel D under _spmm_plan's geometry and under another, on the
+        same X, in turns, bitwise equal: each lane width of the scalar path
+        (one value a lane, m * itemsize not a multiple of 16) against the
+        widest, one 128-byte run a row, which could serve every such m with
+        the rest of m tiled; and plane-major m = 80 at its cap of two chunks
+        a lane against five, one pass."""
+        plan = getattr(spmv_well_module, "_spmm_plan", None)
+        if plan is None:
+            print("phase 5 geometry: the package picks no geometry by m "
+                  "(no _spmm_plan); skipped", flush=True)
+            return
+        item = w.vals.element_size()
+        widest = 128 // item
+        cases = [(m, False, (widest, 1)) for m in (1, 2, 3, 5, 13, 31)
+                 if m * item % 16 and m <= widest]
+        cases.append((80, True, (8, -(-80 * item // 128))))
+        for m, planes, other in cases:
+            xp = randn(m * n, w.dtype, xgen).reshape(m, n)
+            xc = None if planes else xp.T.contiguous()
+
+            def run():
+                return well_spmm_planes(w, xp) if planes else well_spmm(w, xc)
+
+            def run_other():
+                with geometry(*other):
+                    return run()
+
+            chosen = plan(m, item, m * item % 16 == 0, planes)
+            form = "planes" if planes else "column-major"
+            if chosen == other:
+                print(f"phase 5 geometry [{card}] well_spmm {form} {w.dtype} "
+                      f"m={m}: _spmm_plan (lanes, chunks) {chosen}, the "
+                      f"widest, {median_ms(run):.4f} ms", flush=True)
+                continue
+            same = torch.equal(run(), run_other())
+            a = samples_ms(run)
+            b = samples_ms(run_other) + samples_ms(run_other)
+            a += samples_ms(run)
+            print(f"phase 5 geometry [{card}] well_spmm {form} {w.dtype} "
+                  f"m={m}: _spmm_plan (lanes, chunks) {chosen} "
+                  f"{statistics.median(a):.4f} ms, {other} "
+                  f"{statistics.median(b):.4f} ms, bitwise equal {same}",
+                  flush=True)
+            require(same, f"kernel D m={m} differs between geometries")
 
     # kernels C and D on the permuted 2048**2 operator.  Bytes: the stored
     # slots (value + int32 column) + slice_ptr + x + y, for D the A stream
@@ -700,6 +763,7 @@ def main() -> None:
                   f"kernel {col_ms:.4f} ms, well_spmm_planes {planes_ms:.4f} "
                   f"ms", flush=True)
             del xp, xc
+        time_geometry(w)
         del w, lib_c
         csr = poisson_2d(g, dtype=dtype, device=dev)
         w = st.csr_to_well(csr)
@@ -830,7 +894,6 @@ def main() -> None:
         if "planes_ms" in t:
             out["planes_ms"] = t["planes_ms"]
             out["copy_ms"] = t["copy_ms"]
-            out["gather_floor_ms"] = t["gather_floor_ms"]
         return out
 
     spmm_entry = entry_of(

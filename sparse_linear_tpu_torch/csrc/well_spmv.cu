@@ -52,7 +52,8 @@
 //  * Y column-major: each row's values go out as the same runs.  Y
 //    plane-major: the 32 rows x tile block is staged in shared memory and
 //    each plane's 32 rows go out as one contiguous run (the tile is at
-//    most two chunks, which bounds the stage).
+//    most two chunks, which bounds the stage; at m = 80 one pass of five
+//    ran within 0.5 % of it, on the card above).
 //  * Each entry of Y is summed over its row's slots in slot order from
 //    zero, acc += v * x (one fma), as kernel C sums: column t of the
 //    result is bitwise kernel C on column t of X.  Rows longer than ks
@@ -84,6 +85,7 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -93,6 +95,8 @@ constexpr int kSlice = 32;
 constexpr int kBatch = 8;  // slots of a row loaded before their gathers
 constexpr int kSpmmWarps = 4;  // kernel D: warps a block, one slice each
 constexpr int kStagePad = kSlice + 1;  // Y stage row stride (no bank clash)
+constexpr int kMaxStage = 32;  // kernel D: most slots a row staged at a time
+constexpr int kMaxDevices = 64;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -383,6 +387,44 @@ int launch_spmv(const void* slice_ptr, const void* cols, const void* vals,
   return cudaGetLastError();
 }
 
+// Blocks of kernel D on the whole card at once, for one instantiation at
+// `ks` staged slots and one layout of Y.  The runtime is asked once per
+// (device, ks, layout), on the first launch, which also raises the
+// instantiation's dynamic shared-memory limit to the most any ks takes;
+// later launches read the count kept.  Two threads racing on a first
+// launch ask twice and keep the same count.
+template <typename T, int V, int G, int C>
+cudaError_t spmm_resident_blocks(int device, int ks, bool planes,
+                                 size_t smem, long long* blocks) {
+  static std::atomic<long long> kept[kMaxDevices][kMaxStage][2];  // 0s
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::atomic<long long>& slot = kept[device][ks - 1][planes];
+  long long n = slot.load(std::memory_order_relaxed);
+  if (n > 0) {
+    *blocks = n;
+    return cudaSuccess;
+  }
+  auto kernel = well_spmm_kernel<T, V, G, C>;
+  const size_t most = kSpmmWarps * spmm_warp_bytes(sizeof(T), kMaxStage,
+                                                   C * G * V);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(most));
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  int per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kSpmmWarps * kSlice, smem);
+  if (err != cudaSuccess) return err;
+  if (sms <= 0 || per_sm <= 0) return cudaErrorLaunchOutOfResources;
+  n = static_cast<long long>(sms) * per_sm;
+  slot.store(n, std::memory_order_relaxed);
+  *blocks = n;
+  return cudaSuccess;
+}
+
 // Kernel D as a persistent grid: as many blocks as fit on the card at
 // once (fewer for a small matrix), each warp walking slices grid-stride.
 template <typename T, int V, int G, int C>
@@ -393,23 +435,14 @@ int launch_spmm_as(const void* slice_ptr, const void* cols, const void* vals,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   auto kernel = well_spmm_kernel<T, V, G, C>;
+  const bool planes = y_row == 1;
   const size_t smem =
-      kSpmmWarps * spmm_warp_bytes(sizeof(T), ks, y_row == 1 ? C * G * V : 0);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+      kSpmmWarps * spmm_warp_bytes(sizeof(T), ks, planes ? C * G * V : 0);
+  long long cap = 0;
+  err = spmm_resident_blocks<T, V, G, C>(device, ks, planes, smem, &cap);
   if (err != cudaSuccess) return err;
-  int sms = 0;
-  int per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kSpmmWarps * kSlice, smem);
-  if (err != cudaSuccess) return err;
-  if (sms <= 0 || per_sm <= 0) return cudaErrorLaunchOutOfResources;
   const long long want = ((nr + kSlice - 1) / kSlice + kSpmmWarps - 1) /
                          kSpmmWarps;
-  const long long cap = static_cast<long long>(sms) * per_sm;
   const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
   kernel<<<blocks, kSpmmWarps * kSlice, smem,
            static_cast<cudaStream_t>(stream)>>>(
@@ -429,7 +462,7 @@ int launch_spmm(const void* slice_ptr, const void* cols, const void* vals,
                 long long y_row, long long y_rhs, int vec, int lanes,
                 int chunks, int ks, int device, void* stream) {
   constexpr int VX = 16 / sizeof(T);
-  if (ks < 1) return cudaErrorInvalidValue;
+  if (ks < 1 || ks > kMaxStage) return cudaErrorInvalidValue;
 #define SLT_SPMM(V, G, C)                                                   \
   return launch_spmm_as<T, V, G, C>(slice_ptr, cols, vals, x, y, nr, m,    \
                                     y_row, y_rhs, ks, device, stream)

@@ -153,7 +153,11 @@ well_spmv.launches = 0
 # of X, at most _ROW_BYTES of it a chunk; a lane holds at most
 # _MAX_CHUNKS chunks (plane-major _MAX_CHUNKS_PLANES, which bounds the
 # shared-memory Y stage), and the rest of m is tiled.  A warp stages at
-# most _MAX_STAGE_SLOTS slots a row of its slice at a time.
+# most _MAX_STAGE_SLOTS slots a row of its slice at a time (kMaxStage).
+# On an NVIDIA H100 80GB HBM3 at 700.00 W (permuted 2048**2 operator,
+# chip_smoke.py phase 5) the fewest lanes that cover m ran 1.3-6.2x as
+# fast as the widest group at every scalar m timed (1, 2, 3, 5, 13), and
+# plane-major m = 80 in one pass ran within 0.5 % of the cap of two.
 _ROW_BYTES = 128
 _MAX_CHUNKS = 5
 _MAX_CHUNKS_PLANES = 2

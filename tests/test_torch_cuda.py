@@ -217,12 +217,15 @@ def test_well_spmv_kernel_matches_plain(dev, dtype, case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("m", [1, 5, 8, 16, 17, 32, 33, 40, 64, 80])
+@pytest.mark.parametrize("m", [1, 2, 4, 5, 8, 16, 17, 32, 33, 40, 64, 80,
+                               96, 168])
 @pytest.mark.parametrize("case", WELL_CASES)
 def test_well_spmm_kernel_matches_plain(dev, dtype, m, case):
     """Plane-major and column-major, m from one lane a row to five chunks a
-    lane (m = 80 in f64) and past them (tiled), vector and scalar lanes
-    (m * itemsize a multiple of 16 or not), with strided planes, on empty
+    lane (m = 80 in f64, 160 in f32) and past them (96 and 168 in f64, 168
+    in f32: column-major Y tiled in 16-byte vectors), every lane width of
+    the vector and scalar lanes (m * itemsize a multiple of 16 or not),
+    with strided planes, on empty
     rows, a partial last slice, skewed long rows (staged in several
     rounds) and rectangular shapes."""
     a = _well_case(case, dtype, dev)

@@ -351,6 +351,9 @@ def test_spmm_stage_slots():
     empty = csr_to_well(st.zeros((100, 50), dtype=torch.float32,
                                  device="cpu"))
     assert tk._stage_slots(empty) == 1
+    # the kernel keeps its occupancy per staging width up to the same cap
+    src = (_build._PKG / "csrc" / "well_spmv.cu").read_text()
+    assert f"kMaxStage = {tk._MAX_STAGE_SLOTS};" in src
 
 
 def test_well_spmm_complex_and_vector():
