@@ -48,8 +48,23 @@ NVIDIA GPU:
    well_spmm_planes against the plain version; the staged SpGEMM A @ A of
    the permuted 1024**2 operator against the sort-based one (identical
    pattern, values within 1e-12); the peak device memory.
+7. Direct solver at full size (``solve.api``, multifrontal backend), from
+   its own random stream: the 1024**2 Poisson operator analyzed once
+   (nested dissection) and factored as f32 Cholesky and f32 LU with
+   ``pivot_eps=1e-10`` (each twice, the second timed; ``solve_refined``
+   with f64 residuals to <= 1e-10 in at most 4 steps) and as f64 Cholesky
+   (direct residual <= 1e-10); on those f64 factors, solves at k = 1 and
+   80, ``trans="H"``, ``solve_part`` "L" then "U" against the full solve
+   (<= 1e-12), ``slogdet`` against the analytic log-determinant (<= 1e-10
+   relative), ``rcond``, and whether two factorizations are bitwise equal;
+   the 64**3 operator as f32 Cholesky refined to <= 1e-10; FEAST's contour
+   shape at 192**2, ``factor_batched`` of 8 complex z_k I - A and
+   ``solve_batched`` with 80 RHS each (residuals <= 1e-10); the phase's
+   peak device memory (< 40 GB).
 
-Prints one JSON line of the kernels (``ms``, ``plain_ms``, ``bound_ms``,
+Prints one JSON line of the direct solver's cases (``direct``: analyze s,
+factor s, solve ms, refinement steps, residual, peak GB, levels, buckets,
+fronts), one JSON line of the kernels (``ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by``, ``bound_share`` = bound_ms / ms, ``library_ms``, null where
 no library call computes the function, ``launches`` from the main paths,
 ``max_abs_err``), then as the last line
@@ -119,6 +134,243 @@ def digest(t) -> str:
 
     data = t.detach().contiguous().view(-1).view(torch.uint8).cpu()
     return hashlib.blake2b(data.numpy(), digest_size=8).hexdigest()
+
+
+def direct_solver_phase(dev, card: str, seed: int,
+                        grids=(1024, 64, 192)) -> list:
+    """Phase 7: the multifrontal direct solver through ``solve.api`` at
+    full width: ``grids`` are the 2D operator's, the 3D one's and the
+    contour's.  Returns the rows of the ``direct`` JSON line; any failed
+    check raises."""
+    import torch
+
+    import sparse_linear_tpu_torch as st
+    from sparse_linear_tpu_torch.solve import api
+    from sparse_linear_tpu_torch.utils import native
+    from sparse_linear_tpu_torch.utils.grids import poisson_2d, poisson_3d
+
+    f32, f64, c128 = torch.float32, torch.float64, torch.complex128
+    # its own stream: phases 4 and 6 keep their draws
+    dgen = torch.Generator(device=dev).manual_seed(seed + 3)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows, peaks = [], []
+
+    def wall(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = f()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def events_ms(f, reps=5):
+        """Median ms of ``reps`` calls from CUDA events, after a warm-up."""
+        f()
+        pairs = []
+        for _ in range(reps):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            f()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+    def rel_res(a, x, b):
+        ax = st.spmm(a, x) if x.ndim == 2 else st.spmv(a, x)
+        return float(torch.linalg.vector_norm(ax - b)
+                     / torch.linalg.vector_norm(b))
+
+    def shape_of(sym):
+        flat = sym.schedule["flat"]
+        return {"levels": sym.schedule["height"] + 1, "buckets": len(flat),
+                "fronts": sum(b["sup_ids"].shape[0] for b in flat)}
+
+    def gflop(sym, kind, dtype, ne=1):
+        """GFLOP the factorization executes on its padded fronts: per front
+        potrf Ns^3/3 (getrf 2 Ns^3/3), the triangular solves Ns^2 Us (two
+        for LU), the Schur product 2 Ns Us^2; four times that in complex."""
+        per = 1 if kind == "cholesky" else 2
+        tot = sum(b["sup_ids"].shape[0] * (per * (b["Ns"] ** 3 / 3
+                                                  + b["Ns"] ** 2 * b["Us"])
+                                           + 2 * b["Ns"] * b["Us"] ** 2)
+                  for b in sym.schedule["flat"])
+        return ne * tot * (4 if dtype.is_complex else 1) / 1e9
+
+    def row(name, n, kind, dtype, sym, analyze_s, factor_s, solve_ms,
+            steps, residual, ne=1):
+        peaks.append(torch.cuda.max_memory_allocated(dev) / 1e9)
+        work = gflop(sym, kind, dtype, ne)
+        rows.append({"name": name, "n": n, "kind": kind,
+                     "dtype": str(dtype).replace("torch.", ""),
+                     "analyze_s": analyze_s, "factor_s": factor_s,
+                     "solve_ms": solve_ms, "refine_steps": steps,
+                     "residual": residual, "peak_gb": peaks[-1],
+                     **shape_of(sym), "factor_gflop": work})
+        print(f"phase 7 [{card}] {name}: n {n}, {kind} {rows[-1]['dtype']}, "
+              f"analyze {analyze_s:.3f} s, factor {factor_s:.3f} s (second "
+              f"call; {work:.2f} GFLOP on padded fronts, "
+              f"{work / factor_s:.1f} GFLOP/s), solve k=1 {solve_ms:.3f} ms, "
+              f"{steps} refinement "
+              f"steps, residual {residual:.3e}, peak {peaks[-1]:.3f} GB, "
+              f"{rows[-1]['levels']} levels / {rows[-1]['buckets']} buckets /"
+              f" {rows[-1]['fronts']} fronts", flush=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def factored(a, sym, **kw):
+        """Factor twice; the factors and the second call's wall time."""
+        wall(lambda: api.factor(a, sym, backend="multifrontal", **kw))
+        return wall(lambda: api.factor(a, sym, backend="multifrontal", **kw))
+
+    def refined_case(name, a32, a64, sym, analyze_s, **kw):
+        """f32 factors, f64 refinement (tol 1e-10, at most 4 steps)."""
+        f, factor_s = factored(a32, sym, **kw)
+        n = a64.shape[0]
+        b = torch.randn(n, dtype=f64, device=dev, generator=dgen)
+        (x, info), _ = wall(lambda: api.solve_refined(
+            f, a64, b, tol=1e-10, max_iter=4))
+        res = rel_res(a64, x, b)
+        require(x.shape == (n,) and bool(torch.isfinite(x).all()),
+                f"{name}: solution")
+        require(info.converged and res <= 1e-10,
+                f"{name}: refined residual {res} (info {info})")
+        solve_ms = events_ms(lambda: api.solve(f, b.to(f32)))
+        row(name, n, kw.get("kind", "lu"), f32, sym, analyze_s, factor_s,
+            solve_ms, info.refinement_steps, res)
+        return f
+
+    # the host library (symbolic analysis, orderings) is built from the
+    # checkout's sources at first use: built here, outside analyze's time
+    _, build_s = wall(native.load)
+    print(f"phase 7 host library: {native.library_path().relative_to(ROOT)}"
+          f" built or loaded in {build_s:.2f} s (g++ "
+          f"{' '.join(native.GXX_FLAGS)})", flush=True)
+
+    # ---- 1-3, 5, 7: the 1024**2 operator, one analyze
+    g = grids[0]
+    n = g * g
+    a32 = poisson_2d(g, dtype=f32, device=dev)
+    a64 = poisson_2d(g, dtype=f64, device=dev)
+    sym, analyze_s = wall(lambda: api.analyze(a32, backend="multifrontal",
+                                              dims=(g, g)))
+    refined_case("2d cholesky f32", a32, a64, sym, analyze_s,
+                 kind="cholesky")
+    torch.cuda.empty_cache()
+    refined_case("2d lu f32 pivot_eps=1e-10", a32, a64, sym, analyze_s,
+                 kind="lu", pivot_eps=1e-10)
+    torch.cuda.empty_cache()
+    f_first, _ = wall(lambda: api.factor(a64, sym, backend="multifrontal",
+                                         kind="cholesky"))
+    f, factor_s = wall(lambda: api.factor(a64, sym, backend="multifrontal",
+                                          kind="cholesky"))
+    b = torch.randn(n, dtype=f64, device=dev, generator=dgen)
+    x = api.solve(f, b)
+    res = rel_res(a64, x, b)
+    require(not f.breakdown and res <= 1e-10,
+            f"2d cholesky f64: direct residual {res}")
+    solve_ms = events_ms(lambda: api.solve(f, b))
+    row("2d cholesky f64", n, "cholesky", f64, sym, analyze_s, factor_s,
+        solve_ms, 0, res)
+
+    # 5. solve throughput on the f64 Cholesky factors
+    b80 = torch.randn((n, 80), dtype=f64, device=dev, generator=dgen)
+    x80 = api.solve(f, b80)
+    res80 = rel_res(a64, x80, b80)
+    ms80 = events_ms(lambda: api.solve(f, b80))
+    xh = api.solve(f, b, trans="H")
+    res_h = rel_res(a64.ctrans().tocsr(), xh, b)
+    ms_h = events_ms(lambda: api.solve(f, b, trans="H"))
+    # Cholesky: row_perm = col_perm = the fill-reducing order, so
+    # x = Q U^-1 L^-1 P b is solve_part "L" of b[perm], then "U", then
+    # scattered back through perm
+    perm = torch.as_tensor(sym.perm, dtype=torch.int64, device=dev)
+    ms_l = events_ms(lambda: api.solve_part(f, b[perm], "L"))
+    z = api.solve_part(f, b[perm], "L")
+    ms_u = events_ms(lambda: api.solve_part(f, z, "U"))
+    xp = torch.empty_like(b)
+    xp[perm] = api.solve_part(f, z, "U")
+    part_rel = float(torch.linalg.vector_norm(xp - x)
+                     / torch.linalg.vector_norm(x))
+    print(f"phase 7 [{card}] solve 2d cholesky f64: k=1 {solve_ms:.3f} ms, "
+          f"k=80 {ms80:.3f} ms (residual {res80:.3e}), trans=H k=1 "
+          f"{ms_h:.3f} ms (residual {res_h:.3e}); solve_part L {ms_l:.3f} ms"
+          f" + U {ms_u:.3f} ms, against the full solve {part_rel:.3e} (tol "
+          f"1e-12)", flush=True)
+    require(res80 <= 1e-10 and res_h <= 1e-10,
+            f"k=80 / trans=H residuals {res80}, {res_h}")
+    require(part_rel <= 1e-12, f"solve_part L then U: {part_rel}")
+    rows[-1].update(solve_k80_ms=ms80, solve_h_ms=ms_h,
+                    solve_part_l_ms=ms_l, solve_part_u_ms=ms_u)
+
+    # 7. checks on the f64 Cholesky factors
+    sign, logdet = api.slogdet(f)
+    lam = (2.0 - 2.0 * torch.cos(torch.arange(1, g + 1, dtype=f64)
+                                 * math.pi / (g + 1)))
+    exact = float(torch.log(lam[:, None] + lam[None, :]).sum())
+    det_rel = abs(float(logdet) - exact) / abs(exact)
+    rc = float(api.rcond(f))
+
+    def blocks_digest(fac):
+        return digest(torch.cat([fac.blocks[k][name].reshape(-1)
+                                 for k in sorted(fac.blocks) if k >= 0
+                                 for name in ("lu", "g12")]))
+
+    d1, d2 = blocks_digest(f_first), blocks_digest(f)
+    print(f"phase 7 [{card}] 2d cholesky f64: slogdet sign {float(sign)}, "
+          f"log|det| {float(logdet):.12f} vs analytic {exact:.12f} (rel "
+          f"{det_rel:.3e}, tol 1e-10), rcond {rc:.6e}; two factorizations' "
+          f"digests {d1} {d2}, bitwise equal: {str(d1 == d2).lower()}",
+          flush=True)
+    require(float(sign) == 1.0 and det_rel <= 1e-10,
+            f"slogdet {float(logdet)} vs {exact}")
+    del f, f_first, a32, a64, x, x80, b80, xh, xp, z, sym
+    torch.cuda.empty_cache()
+
+    # ---- 4. the 64**3 operator
+    g3 = grids[1]
+    a32 = poisson_3d(g3, dtype=f32, device=dev)
+    a64 = poisson_3d(g3, dtype=f64, device=dev)
+    sym, analyze_s = wall(lambda: api.analyze(a32, backend="multifrontal",
+                                              dims=(g3, g3, g3)))
+    refined_case("3d cholesky f32", a32, a64, sym, analyze_s,
+                 kind="cholesky")
+    del a32, a64, sym
+    torch.cuda.empty_cache()
+
+    # ---- 6. FEAST's contour shape: 8 shifted complex factorizations
+    gf = grids[2]
+    nf = gf * gf
+    a = poisson_2d(gf, dtype=f64, device=dev)
+    sym, analyze_s = wall(lambda: api.analyze(a, backend="multifrontal",
+                                              dims=(gf, gf)))
+    diag = (a.row_ids() == a.indices).to(c128)
+    theta = (2 * torch.arange(8, dtype=f64) + 1) * math.pi / 16
+    z = 0.3 + 0.2 * torch.exp(1j * theta).to(c128)
+    data = z[:, None].to(dev) * diag[None, :] - a.data.to(c128)[None, :]
+    wall(lambda: api.factor_batched(a, data, sym))
+    fb, factor_s = wall(lambda: api.factor_batched(a, data, sym))
+    rhs = torch.randn((8, nf, 80), dtype=c128, device=dev, generator=dgen)
+    xb, solve_s = wall(lambda: api.solve_batched(fb, rhs))
+    res_b = [rel_res(dataclasses.replace(a, data=data[k]), xb[k], rhs[k])
+             for k in range(8)]
+    print(f"phase 7 [{card}] contour 192^2: factor_batched 8 x c128 "
+          f"{factor_s:.3f} s, solve_batched (8, {nf}, 80) "
+          f"{solve_s * 1e3:.3f} ms, residuals max {max(res_b):.3e} (tol "
+          f"1e-10)", flush=True)
+    require(max(res_b) <= 1e-10, f"contour residuals {res_b}")
+    solve_ms = events_ms(lambda: api.solve_batched(fb, rhs[:, :, :1]))
+    row("contour 192^2 factor_batched x8", nf, "lu", c128, sym, analyze_s,
+        factor_s, solve_ms, 0, max(res_b), ne=8)
+    rows[-1]["solve_k80_ms"] = solve_s * 1e3
+    del fb, xb, rhs, data, a, sym
+    torch.cuda.empty_cache()
+
+    peak = max(peaks)
+    print(f"phase 7 direct solver: {time.perf_counter() - t_phase:.3f} s "
+          f"wall, peak device memory {peak:.3f} GB (tol 40)", flush=True)
+    require(peak < 40.0, f"phase 7 peak device memory {peak} GB")
+    return rows
 
 
 def main() -> None:
@@ -877,6 +1129,10 @@ def main() -> None:
             "iterations + 3")
     require(launches["well_spmm"] >= 1, "main path launched no well_spmm")
     require(peak2_gb < 5.0, f"peak device memory {peak2_gb} GB")
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 7. direct solver, full size
+    direct = direct_solver_phase(dev, card, args.seed)
 
     def entry_of(name, dtype, replaces, launches_of, err, shape, also=()):
         t = times[f"{name} {dtype}"]
@@ -905,6 +1161,7 @@ def main() -> None:
     spmm_entry["readings"] = readings
     spmm_entry["more_m"] = more_m
 
+    print(json.dumps({"direct": direct, "card": card}))
     print(json.dumps({"kernels": [
         entry_of("dia_spmv", f32, f"{PALLAS}:133", "dia_spmv",
                  parity_abs[f"poisson_2d(2048) {f32}"],

@@ -3,7 +3,8 @@
 A second package beside the JAX one, laid out the same way so that each
 module's counterpart is found by path, and held against it by parity tests.
 It imports torch and never JAX.  It covers the iterative-solve path on
-structured (DIA) and unstructured (WELL) operators:
+structured (DIA) and unstructured (WELL) operators and the staged direct
+solver:
 
   * formats/ — COO/CSR/CSC frozen dataclasses of tensors, DIA, WELL (a
     sliced ELL for unstructured patterns), format selection, invariant
@@ -14,10 +15,18 @@ structured (DIA) and unstructured (WELL) operators:
     Hopper (sm_90a) CUDA kernels for DIA SpMV, the one-launch DIA SpMV
     chain, WELL SpMV and WELL SpMM (f32 and f64), built with nvcc at first
     use.
-  * solve/   — conjugate gradients.
-  * utils/   — 1D/2D/3D Poisson operators.
+  * solve/   — conjugate gradients, and the multifrontal direct solver:
+    fill-reducing orderings (natural, RCM, AMD, nested dissection),
+    symbolic analysis, numeric LU / Cholesky factorization on the card
+    (batched ``torch.linalg`` fronts), solves and partial solves,
+    refinement, GMRES, determinant and condition queries, with a dense
+    backend beside it (``solve.api``, ``solve.multifrontal``, imported by
+    path as in the JAX package).
+  * utils/   — 1D/2D/3D Poisson operators; the host library (symbolic
+    analysis, AMD, ND) built with g++ at first use from ``csrc/host``.
   * interop/ — scipy.sparse / raw-array interchange, and carrying matrices
-    across from the JAX package as numpy arrays.
+    and direct-solver artifacts across from the JAX package as numpy
+    arrays.
 
 Entry points run on the card unless the caller asks for the CPU.  Every
 constructor that makes tensors from nothing or from host arrays takes

@@ -12,6 +12,17 @@ its chunk planes (``bases``, ``idx``, ``vals`` and ``vals_im``, or the
 double-float ``vals_lo``) are decoded to triples with numpy, hi + lo summed
 in f64, and the port builds its own WELL (or WELL64) from their CSR.  The
 two then compute the same y.
+
+Kinds ``"mf_symbolic"`` and ``"mf_factors"`` carry the direct solver's
+artifacts across.  A symbolic artifact travels as its ``perm`` and
+``relax`` = (relax_small, relax_frac): the port re-derives the identical
+schedule with ``multifrontal.analyze(mat, perm=...)``, so ``from_arrays``
+takes the pattern's matrix as ``mat=``.  A factor artifact travels as its
+per-bucket blocks, leaves named ``lu.<b>``, ``perm.<b>``, ``g21.<b>`` and
+``g12.<b>`` for bucket b, plus ``n_flag``, ``rscale`` (when equilibrated),
+``kind`` and ``batch`` (None unless batched); ``from_arrays`` takes the
+port's symbolic artifact of the same schedule as ``symbolic=``.  With
+these the port's solves run on the JAX package's own factors.
 """
 
 from __future__ import annotations
@@ -25,7 +36,7 @@ from sparse_linear_tpu_torch.formats.structured import DIA
 from sparse_linear_tpu_torch.formats.well import csr_to_well
 from sparse_linear_tpu_torch.kernels.spmv_well64 import csr_to_well64
 
-__all__ = ["from_arrays", "to_arrays", "KINDS"]
+__all__ = ["from_arrays", "to_arrays", "KINDS", "MF_BLOCK_LEAVES"]
 
 # leaf names per format kind, in the JAX package's field order
 KINDS = {
@@ -36,7 +47,11 @@ KINDS = {
     # JAX WELL chunk planes; "well" also takes an optional "vals_im"
     "well": ("bases", "idx", "vals"),
     "well64": ("bases", "idx", "vals", "vals_lo"),
+    "mf_symbolic": ("perm", "relax"),
+    "mf_factors": ("n_flag", "kind", "batch"),
 }
+# per-bucket leaves of "mf_factors", named f"{leaf}.{bucket}"
+MF_BLOCK_LEAVES = ("lu", "perm", "g21", "g12")
 _INDEX_LEAVES = {"row", "col", "indptr", "indices"}
 _VREG_ROWS = 1024  # the JAX WELL's output vreg: 8 sublanes x 128 lanes
 _LANES = 128
@@ -70,15 +85,62 @@ def _well_triples(arrays, shape):
     return rows[keep], cols[keep], vals[keep]
 
 
-def from_arrays(kind: str, arrays, shape, offsets=None, *, device=None):
+def _mf_factors(arrays, symbolic, device):
+    """MFFactors from per-bucket numpy leaves on ``device``."""
+    from sparse_linear_tpu_torch.solve.multifrontal import MFFactors
+
+    if symbolic is None:
+        raise ValueError("from_arrays('mf_factors'): pass symbolic= (the "
+                         "port's analyze of the same pattern and perm)")
+
+    def dev(a):
+        return torch.as_tensor(np.array(a), device=device)
+
+    blocks = {}
+    for bidx in range(len(symbolic.schedule["flat"])):
+        blocks[bidx] = {n: dev(arrays[f"{n}.{bidx}"])
+                        for n in MF_BLOCK_LEAVES}
+    blocks[-1] = {"n_flag": dev(arrays["n_flag"]).to(torch.int64)}
+    if arrays.get("rscale") is not None:
+        blocks[-2] = {"rscale": dev(arrays["rscale"])}
+    batch = arrays["batch"]
+    return MFFactors(symbolic, blocks, blocks[0]["lu"].dtype,
+                     kind=str(arrays["kind"]),
+                     batch=None if batch is None else int(batch))
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().resolve_conj().cpu().numpy()
+
+
+def from_arrays(kind: str, arrays, shape, offsets=None, *, device=None,
+                mat=None, symbolic=None):
     """The port's ``kind`` format from a mapping of leaf name -> array, on
-    ``device``, by default the device of a tensor leaf, else the card."""
-    device = default_device(device, *arrays.values())
+    ``device``, by default the device of a tensor leaf, else the card.
+    ``mat`` (kind ``"mf_symbolic"``) and ``symbolic`` (kind
+    ``"mf_factors"``) are described in the module docstring."""
+    if kind == "mf_symbolic":
+        device = default_device(device, mat.data if mat is not None
+                                else None)
+    else:
+        device = default_device(device, *arrays.values())
     if kind not in KINDS:
         raise ValueError(f"unknown format kind {kind!r}; one of {sorted(KINDS)}")
     missing = [n for n in KINDS[kind] if n not in arrays]
     if missing:
         raise ValueError(f"from_arrays({kind!r}): missing leaves {missing}")
+    if kind == "mf_symbolic":
+        from sparse_linear_tpu_torch.solve.multifrontal import analyze
+
+        if mat is None:
+            raise ValueError("from_arrays('mf_symbolic'): pass mat= (the "
+                             "matrix of the analysed pattern)")
+        relax_small, relax_frac = arrays["relax"]
+        return analyze(mat.to(device), perm=np.asarray(arrays["perm"]),
+                       relax_small=int(relax_small),
+                       relax_frac=float(relax_frac))
+    if kind == "mf_factors":
+        return _mf_factors(arrays, symbolic, device)
     if kind in ("well", "well64"):
         shape = tuple(int(s) for s in shape)
         rows, cols, vals = _well_triples(arrays, shape)
@@ -108,7 +170,25 @@ def from_arrays(kind: str, arrays, shape, offsets=None, *, device=None):
 
 
 def to_arrays(mat):
-    """(kind, {leaf: numpy array}, shape, offsets) of a port format."""
+    """(kind, {leaf: numpy array}, shape, offsets) of a port format or of
+    a multifrontal artifact."""
+    from sparse_linear_tpu_torch.solve.multifrontal import (
+        MFFactors,
+        MFSymbolic,
+    )
+
+    if isinstance(mat, MFSymbolic):
+        return ("mf_symbolic", {"perm": np.asarray(mat.perm),
+                                "relax": mat.relax}, (mat.n, mat.n), None)
+    if isinstance(mat, MFFactors):
+        arrays = {f"{n}.{bidx}": _host(blk[n])
+                  for bidx, blk in mat.blocks.items() if bidx >= 0
+                  for n in MF_BLOCK_LEAVES}
+        arrays.update(n_flag=_host(mat.blocks[-1]["n_flag"]),
+                      kind=mat.kind, batch=mat.batch)
+        if mat.row_scale is not None:
+            arrays["rscale"] = _host(mat.row_scale)
+        return "mf_factors", arrays, (mat.n, mat.n), None
     if isinstance(mat, DIA):
         kind = "dia"
     elif isinstance(mat, COO):

@@ -1,6 +1,8 @@
 """The port's Hopper kernels against their plain versions, on the card:
 kernels A and B (DIA SpMV and chain) and kernels C and D (WELL SpMV and
-SpMM).
+SpMM); and the multifrontal direct solver on CUDA tensors against the port
+on the CPU (f64/c128 within 1e-12, f32/c64 within 1e-5), every block and
+solution on the card.
 
 Every test here needs an NVIDIA GPU and nvcc: it is marked ``cuda`` and
 skips without a card.  This file imports no JAX, so it also runs where JAX
@@ -372,3 +374,132 @@ def test_well_kernels_refuse(dev):
         well_spmv(bad, torch.ones(64, device=dev))
     with pytest.raises(ValueError, match="sliced layout"):
         well_spmm(bad, torch.ones((64, 2), device=dev))
+
+
+# ------------------------------------------------ multifrontal direct solver
+
+
+def _direct_pair(kind, dtype, g, dev, seed=13):
+    """The g**2 five-point pattern with values for ``kind``: the operator
+    (plus i times an antisymmetric part in complex: Hermitian positive
+    definite) for Cholesky, perturbed off-diagonals (diagonally dominant)
+    for LU; (CPU matrix, card matrix)."""
+    a = poisson_2d(g, dtype=torch.float64, device="cpu")
+    rows, cols = a.row_ids().numpy(), a.indices.numpy()
+    vals = a.data.numpy().copy()
+    rng = np.random.default_rng(seed)
+    off = rows != cols
+    pert = rng.uniform(-0.4, 0.4, vals.shape) * off
+    if kind == "lu":
+        vals = vals + pert
+    if dtype.is_complex:
+        if kind == "cholesky":
+            # antisymmetric imaginary part: entry (r, c) gets +t, (c, r) -t
+            key = np.minimum(rows, cols) * g * g + np.maximum(rows, cols)
+            t = 0.3 * np.sin(key.astype(np.float64))
+            vals = vals + 1j * np.where(rows < cols, t, -t) * off
+        else:
+            vals = vals + 1j * rng.uniform(-0.4, 0.4, vals.shape) * off
+    host = st.from_triples((g * g, g * g), rows, cols,
+                           torch.as_tensor(vals).to(dtype),
+                           device="cpu").tocsr()
+    return host, host.to(dev)
+
+
+DIRECT_RTOL = {torch.float32: 1e-5, torch.complex64: 1e-5,
+               torch.float64: 1e-12, torch.complex128: 1e-12}
+
+
+@pytest.mark.parametrize("trans", ["N", "H", "T"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128],
+                         ids=["f32", "f64", "c64", "c128"])
+@pytest.mark.parametrize("kind", ["lu", "cholesky"])
+def test_direct_solver_on_card_matches_cpu(dev, kind, dtype, trans):
+    from sparse_linear_tpu_torch.solve import api
+
+    g = 12
+    host, card = _direct_pair(kind, dtype, g, dev)
+    sym = api.analyze(host, backend="multifrontal", dims=(g, g))
+    f_card = api.factor(card, sym, backend="multifrontal", kind=kind)
+    f_host = api.factor(host, sym, backend="multifrontal", kind=kind)
+    for blk in f_card.blocks.values():
+        for t in blk.values():
+            assert t.device.type == "cuda"
+    assert not f_card.breakdown and f_card.n_flagged == 0
+    rng = np.random.default_rng(3)
+    b = rng.standard_normal((g * g, 3))
+    if dtype.is_complex:
+        b = b + 1j * rng.standard_normal(b.shape)
+    b = torch.as_tensor(b).to(dtype)
+    x = api.solve(f_card, b.to(dev), trans=trans)
+    torch.cuda.synchronize()
+    assert x.device.type == "cuda" and x.dtype == dtype
+    ref = api.solve(f_host, b, trans=trans)
+    assert _rel(x.cpu(), ref) <= DIRECT_RTOL[dtype]
+    tol = 1e-4 if dtype in (torch.float32, torch.complex64) else 1e-12
+    assert float(api.residual_norm(card, x, b.to(dev), trans=trans)) <= tol
+
+
+def test_direct_factor_batched_on_card(dev):
+    from sparse_linear_tpu_torch.solve import multifrontal as mf
+
+    g = 10
+    host, card = _direct_pair("lu", torch.complex128, g, dev)
+    sym = mf.analyze(host, dims=(g, g))
+    diag = (host.row_ids() == host.indices).to(torch.complex128)
+    stack = torch.stack([host.data + (0.5j * e) * diag for e in range(3)])
+    fb_card = mf.factor_batched(stack.to(dev), sym)
+    fb_host = mf.factor_batched(stack, sym)
+    assert fb_card.batch == 3
+    for blk in fb_card.blocks.values():
+        for t in blk.values():
+            assert t.device.type == "cuda"
+    bs = torch.randn((3, g * g, 4), dtype=torch.complex128,
+                     generator=torch.Generator().manual_seed(5))
+    for trans in (False, True):
+        x = mf.solve_batched(fb_card, bs.to(dev), trans=trans)
+        assert x.device.type == "cuda"
+        assert _rel(x.cpu(), mf.solve_batched(fb_host, bs, trans=trans)
+                    ) <= 1e-12
+    np.testing.assert_allclose(mf.slogdet(fb_card)[1],
+                               mf.slogdet(fb_host)[1], rtol=1e-12)
+
+
+def test_direct_full_f32_on_card_under_tf32(dev):
+    """TF32 asked for globally: the factor and the solve still run in full
+    f32 (TF32's 10-bit mantissa would miss 1e-5 by far), and the caller's
+    setting comes back."""
+    from sparse_linear_tpu_torch.solve import api
+
+    g = 48
+    host, card = _direct_pair("cholesky", torch.float32, g, dev)
+    sym = api.analyze(host, backend="multifrontal", dims=(g, g))
+    b = torch.randn(g * g, generator=torch.Generator().manual_seed(1))
+    ref = api.solve(api.factor(host, sym, backend="multifrontal",
+                               kind="cholesky"), b)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        f = api.factor(card, sym, backend="multifrontal", kind="cholesky")
+        x = api.solve(f, b.to(dev))
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert _rel(x.cpu(), ref) <= 1e-5
+
+
+def test_direct_refined_on_card(dev):
+    """f32 factors on the card refined with f64 residuals to 1e-10."""
+    from sparse_linear_tpu_torch.solve import api
+
+    g = 64
+    a32 = poisson_2d(g, dtype=torch.float32, device=dev)
+    a64 = poisson_2d(g, dtype=torch.float64, device=dev)
+    sym = api.analyze(a32, backend="multifrontal", dims=(g, g))
+    for kind, opts in (("cholesky", {}), ("lu", {"pivot_eps": 1e-10})):
+        f = api.factor(a32, sym, backend="multifrontal", kind=kind, **opts)
+        b = torch.randn(g * g, dtype=torch.float64, device=dev)
+        x, info = api.solve_refined(f, a64, b, tol=1e-10, max_iter=4)
+        assert x.device.type == "cuda" and info.converged
+        assert float(api.residual_norm(a64, x, b)) <= 1e-10

@@ -82,3 +82,79 @@ def test_constructor_builds_on_the_card_unless_asked(name, how):
     np.testing.assert_array_equal(
         m.tocsr().todense().numpy(),
         build(_host, device="cpu").tocsr().todense().numpy())
+
+
+def test_direct_solver_stays_on_the_cpu_with_cpu_inputs():
+    """analyze -> factor -> solve on CPU tensors: every block, diagnostic
+    and solution lies on the CPU (no probe, no move to the card)."""
+    from sparse_linear_tpu_torch.solve import api, multifrontal as mf
+
+    a = grids.poisson_2d(6, dtype=torch.float64, device="cpu")
+    sym = api.analyze(a, backend="multifrontal", ordering="amd")
+    for kind in ("lu", "cholesky"):
+        f = api.factor(a, sym, backend="multifrontal", kind=kind,
+                       scale="sum")
+        devs = {t.device.type for blk in f.blocks.values()
+                for t in blk.values()}
+        assert devs == {"cpu"} and f.device.type == "cpu"
+        x = api.solve(f, np.ones(36))
+        assert x.device.type == "cpu"
+        fb = mf.factor_batched(torch.stack([a.data, 2 * a.data]), sym,
+                               kind=kind)
+        assert {t.device.type for blk in fb.blocks.values()
+                for t in blk.values()} == {"cpu"}
+    assert set(sym._dev_maps) == {"cpu"}
+
+
+def test_factor_batched_of_host_arrays_goes_to_the_card():
+    from sparse_linear_tpu_torch.solve import multifrontal as mf
+
+    a = grids.poisson_2d(4, dtype=torch.float64, device="cpu")
+    sym = mf.analyze(a)
+    stack = np.stack([a.data.numpy()] * 2)
+    if torch.cuda.is_available():
+        assert mf.factor_batched(stack, sym).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            mf.factor_batched(stack, sym)
+    assert mf.factor_batched(stack, sym, device="cpu").device.type == "cpu"
+
+
+def test_host_library_without_gxx_raises(monkeypatch, tmp_path):
+    """No g++ on PATH: the host library cannot be built, and the orderings
+    and the symbolic analysis raise a clear RuntimeError (no fall-back to
+    the Python engine)."""
+    from sparse_linear_tpu_torch.solve import multifrontal as mf
+    from sparse_linear_tpu_torch.utils import native
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(native, "library_path",
+                        lambda: tmp_path / "libslt_host_missing.so")
+    native.load.cache_clear()
+    try:
+        a = grids.poisson_2d(4, dtype=torch.float64, device="cpu")
+        with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+            mf.analyze(a, ordering="amd")
+        with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+            mf.analyze(a, ordering="natural")
+        # the plain engine only when asked for
+        assert mf.analyze(a, ordering="natural", engine="python").n == 16
+    finally:
+        native.load.cache_clear()
+
+
+def test_host_library_build_failure_raises(monkeypatch, tmp_path):
+    from sparse_linear_tpu_torch.utils import native
+
+    bad = tmp_path / "broken.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "sources", lambda: [bad])
+    monkeypatch.setattr(native, "library_path",
+                        lambda: tmp_path / "libslt_host_broken.so")
+    native.load.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+            native.native_amd(3, np.array([0, 0, 0, 0]), np.array([]))
+        assert not (tmp_path / "libslt_host_broken.so").exists()
+    finally:
+        native.load.cache_clear()
