@@ -18,7 +18,11 @@ NVIDIA GPU:
    max|y - y_plain| / max|y_plain| <= 1e-5 in f32 and 1e-12 in f64 for the
    SpMV and SpMM kernels and the 7-step f64 chain, <= 1e-4 for 50 chained
    f32 steps; the f64 WELL SpMV also meets ||y - y_csr|| / ||y_csr|| <=
-   1e-13 against the plain CSR SpMV at 1448**2.
+   1e-13 against the plain CSR SpMV at 1448**2.  Kernel A's multi-RHS form
+   (``dia_spmm_kernel``, ``dia_spmm_planes_kernel``) at m = 1, 5, 16, 33,
+   80, 96 in both layouts and types on 2048**2, 1448**2, 216**3 and the
+   3M x 2M DIA (1e-5 / 1e-12), and at m = 16 and 80 every column bitwise
+   kernel A on that column, with a digest of each result.
 4. Main path at full size, with the kernels' launch counts set to 0 before
    and read after: 2048**2 Poisson triples on the card -> from_triples ->
    tocsr -> check_matrix -> csr_to_dia; the top of the spectrum by power
@@ -38,7 +42,10 @@ NVIDIA GPU:
    floor of a numbering without reuse), and at m = 1, 5, 8 and 96 in both
    layouts; and kernel D under the geometry ``_spmm_plan`` picks against
    another on the same X (the scalar lanes against the widest, plane-major
-   m = 80 at two chunks a lane against one pass), bitwise equal.
+   m = 80 at two chunks a lane against one pass), bitwise equal.  Kernel
+   A's multi-RHS form at FEAST's m = 80 and at m = 16 on 1024**2 and
+   2048**2, both types and layouts, beside its plain version, its bytes
+   bound (the diagonals, X and Y once) and cuSPARSE SpMM.
 6. Slice-2 main path at full size, with the WELL kernels' launch counts set
    to 0 before and read after: the 2048**2 triples with their unknowns
    relabelled by a seeded permutation (an unstructured numbering) ->
@@ -61,8 +68,25 @@ NVIDIA GPU:
    shape at 192**2, ``factor_batched`` of 8 complex z_k I - A and
    ``solve_batched`` with 80 RHS each (residuals <= 1e-10); the phase's
    peak device memory (< 40 GB).
+8. FEAST at full size (``eig.feast``, multifrontal backend), from its own
+   random stream, with the launch counts of kernel A's multi-RHS form set
+   to 0 before and read after: the 50 lowest pairs of the 192**2 operator
+   (cold, then the best of 3 warm calls), then on that window each other
+   contour mode forced (batched, per-node, streaming: the same eigenvalues
+   within 1e-12, each timed the same way), the same operator permuted by a
+   seeded relabelling without grid dims (through WELL and kernel D, whose
+   launches are counted around that run), ``count_eigenvalues`` on that
+   window (16 probes), ``eigsh_sliced`` over about 100 pairs of 64**2 with
+   ``m0_max=64``, and at 1,048,576 dof the 50 lowest pairs (cold, then
+   warm) and the interior window [lambda_100, lambda_150) on the warm
+   pipeline; each against the analytic spectrum (<= 1e-10 on the
+   interval's scale, epsout <= 1e-10), with its contour mode and why, the
+   split of its time, the Ritz values and residuals of the spurious pairs
+   each loop rejected, and the phase's peak device memory (< 75 GB).
 
-Prints one JSON line of the direct solver's cases (``direct``: analyze s,
+Prints one JSON line of the FEAST runs (``feast``: wall cold / warm,
+loops, epsout, errors, mode, split, peak GB), one JSON line of the direct
+solver's cases (``direct``: analyze s,
 factor s, solve ms, refinement steps, residual, peak GB, levels, buckets,
 fronts), one JSON line of the kernels (``ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by``, ``bound_share`` = bound_ms / ms, ``library_ms``, null where
@@ -81,6 +105,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -91,6 +116,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SPMV_SOURCE = "sparse_linear_tpu_torch/csrc/dia_spmv.cu"
 WELL_SOURCE = "sparse_linear_tpu_torch/csrc/well_spmv.cu"
+XLA_SPMV = "sparse_linear_tpu/kernels/spmv.py"
 PALLAS = "sparse_linear_tpu/kernels/spmv_pallas.py"
 PALLAS_WELL = "sparse_linear_tpu/kernels/spmv_well.py"
 PALLAS_WELL64 = "sparse_linear_tpu/kernels/spmv_well64.py"
@@ -373,6 +399,292 @@ def direct_solver_phase(dev, card: str, seed: int,
     return rows
 
 
+def spectrum_2d(g):
+    """The g**2 five-point operator's eigenvalues, ascending (numpy)."""
+    import numpy as np
+
+    lam1 = 4 * np.sin(np.arange(1, g + 1) * np.pi / (2 * (g + 1))) ** 2
+    return np.sort((lam1[:, None] + lam1[None, :]).ravel())
+
+
+def dia_spmm_parity(dev, gen, random_dia, parity_abs) -> None:
+    """Phase 3, kernel A's multi-RHS form: both layouts against the plain
+    versions at m = 1, 5, 16, 33, 80, 96, and at m = 16 and 80 on the 2D
+    operators every column bitwise kernel A on it, with a digest."""
+    import torch
+
+    from sparse_linear_tpu_torch.kernels.spmv import dia_spmm, dia_spmm_planes
+    from sparse_linear_tpu_torch.kernels.spmv_dia import (
+        dia_spmm_kernel,
+        dia_spmm_planes_kernel,
+        dia_spmv_kernel,
+    )
+    from sparse_linear_tpu_torch.utils.grids import poisson_2d, poisson_3d
+
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}
+    ops = [("poisson_2d(2048)", lambda dt: poisson_2d(
+               2048, dtype=dt, fmt="dia", device=dev)),
+           ("poisson_2d(1448)", lambda dt: poisson_2d(
+               1448, dtype=dt, fmt="dia", device=dev)),
+           ("poisson_3d(216)", lambda dt: poisson_3d(
+               216, dtype=dt, fmt="dia", device=dev)),
+           ("rectangular 3000000x2000000", lambda dt: random_dia(
+               (3_000_000, 2_000_000), (-1_000_000, -5, 0, 3, 1_500_000), dt,
+               gen))]
+    for dtype in (torch.float32, torch.float64):
+        for label, make in ops:
+            a = make(dtype)
+            nc = a.shape[1]
+            for m in (1, 5, 16, 33, 80, 96):
+                x = torch.randn((nc, m), dtype=dtype, device=dev,
+                                generator=gen)
+                y = dia_spmm_kernel(a, x)
+                err, rel = max_err(y, dia_spmm(a, x))
+                xp = x.T.contiguous()
+                yp = dia_spmm_planes_kernel(a, xp)
+                errp, relp = max_err(yp, dia_spmm_planes(a, xp))
+                torch.cuda.synchronize()
+                print(f"phase 3 parity dia_spmm {label} {dtype} m={m}: max rel "
+                      f"err column-major {rel:.3e}, plane-major {relp:.3e} "
+                      f"(max abs {max(err, errp):.3e}, tol {tol[dtype]:.0e})",
+                      flush=True)
+                require(rel <= tol[dtype] and relp <= tol[dtype],
+                        f"dia_spmm {label} {dtype} m={m} disagrees: {rel}, "
+                        f"{relp}")
+                parity_abs[f"dia_spmm {label} {dtype} m={m}"] = max(err, errp)
+                if m in (16, 80) and label.startswith("poisson_2d"):
+                    same = all(
+                        torch.equal(y[:, t], col) and torch.equal(yp[t], col)
+                        for t in range(m)
+                        for col in (dia_spmv_kernel(a, x[:, t].contiguous()),))
+                    again = torch.equal(dia_spmm_kernel(a, x), y)
+                    print(f"phase 3 dia_spmm {label} {dtype} m={m}: every "
+                          f"column of both layouts bitwise dia_spmv {same}, "
+                          f"repeated call bitwise equal {again}, digests "
+                          f"{digest(y)} {digest(yp)}", flush=True)
+                    require(same, f"dia_spmm {label} m={m} differs from "
+                            "dia_spmv")
+                    require(again, f"dia_spmm {label} m={m} not repeatable")
+                del x, y, xp, yp
+            del a
+            torch.cuda.empty_cache()
+
+
+def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64)) -> list:
+    """Phase 8: FEAST through ``eig.feast`` at full size: ``grids`` are the
+    36,864-dof operator's, the 1,048,576-dof one's and the slicing one's.
+    Returns the rows of the ``feast`` JSON line; any failed check raises."""
+    import numpy as np
+    import torch
+
+    import sparse_linear_tpu_torch as st
+    from sparse_linear_tpu_torch.eig import pipeline
+    from sparse_linear_tpu_torch.eig.feast import (
+        INFO_OK,
+        FeastParams,
+        count_eigenvalues,
+        eigsh,
+        eigsh_sliced,
+    )
+    from sparse_linear_tpu_torch.kernels.spmv_dia import dia_spmm_kernel
+    from sparse_linear_tpu_torch.kernels.spmv_well import well_spmm
+    from sparse_linear_tpu_torch.utils.grids import poisson_2d
+
+    f64 = torch.float64
+    pgen = torch.Generator(device=dev).manual_seed(seed + 5)
+    rows = []
+    t_phase = time.perf_counter()
+    pipeline.clear_pipeline_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dia_spmm_kernel.launches = 0
+
+    def timed(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = f()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def errors(res, want, interval):
+        """(max |dlambda| / max(|emin|, |emax|, 1), max elementwise
+        relative error) against the analytic values."""
+        got = np.sort(np.asarray(res.values))
+        require(got.shape == want.shape,
+                f"found {got.shape[0]} pairs, expected {want.shape[0]}")
+        scale = max(abs(interval[0]), abs(interval[1]), 1.0)
+        d = np.abs(got - want)
+        return float(d.max() / scale), float((d / np.abs(want)).max())
+
+    def solve(name, a, interval, want, params, warm=1, rel=False,
+              launches_of=None):
+        before = None if launches_of is None else launches_of.launches
+        res, cold_s = timed(lambda: eigsh(80, interval, a, params))
+        split = {k: v for k, v in pipeline.last_run.items()}
+        warm_s = None
+        for _ in range(warm):
+            res = None
+            res, w = timed(lambda: eigsh(80, interval, a, params))
+            warm_s = w if warm_s is None else min(warm_s, w)
+        err, err_rel = errors(res, want, interval)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        row = {"name": name, "n": a.shape[0], "m0": 80,
+               "interval": list(interval), "cold_s": cold_s,
+               "warm_s": warm_s, "loops": res.iterations,
+               "epsout": res.epsout, "n_found": res.n_found,
+               "info": res.info, "max_err_scaled": err,
+               "max_rel_err": err_rel, "mode": split["mode"],
+               "why": split["why"], "routes": list(split["routes"]),
+               "analyze_s": split["analyze_s"],
+               "factor_s": split["factor_s"], "split": split["loops"],
+               "peak_gb": peak}
+        if launches_of is not None:
+            row["launches"] = launches_of.launches - before
+        rows.append(row)
+        solves = sum(lp["solve_s"] for lp in split["loops"])
+        rr = sum(lp["rr_s"] for lp in split["loops"])
+        eighs = sum(lp["eigh_s"] for lp in split["loops"])
+        warm_txt = "" if warm_s is None else f", warm {warm_s:.3f} s"
+        print(f"phase 8 [{card}] {name}: n {a.shape[0]}, cold "
+              f"{cold_s:.3f} s{warm_txt}; {res.iterations} loops, "
+              f"{res.n_found} pairs, epsout {res.epsout:.3e}, info "
+              f"{res.info}; against the analytic spectrum {err:.3e} on the "
+              f"interval's scale, {err_rel:.3e} elementwise relative (tol "
+              f"1e-10); contour {split['mode']} ({split['why']}), routes "
+              f"{split['routes']}; cold split: analyze "
+              f"{split['analyze_s']:.3f} s, factor {split['factor_s']:.3f} s,"
+              f" solves {solves:.3f} s, Rayleigh-Ritz products {rr:.3f} s, "
+              f"host eighs {eighs:.3f} s over {len(split['loops'])} loops; "
+              f"peak {peak:.3f} GB", flush=True)
+        for i, lp in enumerate(split["loops"]):
+            ghosts = ", ".join(f"{v:.9f}: {r:.4e}" for v, r in lp["ghosts"])
+            print(f"phase 8 [{card}] {name} cold loop {i}: solves "
+                  f"{lp['solve_s']:.3f} s (streamed factors "
+                  f"{lp['factor_s']:.3f} s), products {lp['rr_s']:.3f} s, "
+                  f"eighs {lp['eigh_s']:.4f} s; {lp['genuine']} genuine "
+                  f"pairs at {lp['epsout']:.3e}, {lp['rejected']} spurious "
+                  f"rejected (Ritz value: residual {{{ghosts}}})", flush=True)
+        require(res.info == INFO_OK, f"{name}: info {res.info}")
+        require(res.epsout <= 1e-10, f"{name}: epsout {res.epsout}")
+        require(err <= 1e-10, f"{name}: eigenvalue error {err}")
+        if rel:
+            require(err_rel <= 1e-10, f"{name}: relative error {err_rel}")
+        vec = res.vectors
+        require(tuple(vec.shape) == (a.shape[0], res.n_found)
+                and vec.device.type == "cuda"
+                and bool(torch.isfinite(vec).all()), f"{name}: vectors")
+        return res
+
+    # ---- 1. the 50 lowest pairs at 192**2 (bench.py:723-789)
+    g = grids[0]
+    lam = spectrum_2d(g)
+    emax = float((lam[49] + lam[50]) / 2)
+    a = poisson_2d(g, dtype=f64, device=dev)
+    p = FeastParams(tol=1e-10, dims=(g, g), backend="multifrontal")
+    res = solve(f"lowest 50 of {g}^2", a, (0.0, emax), lam[:50], p, warm=3,
+                rel=True)
+    # each other contour mode forced on the same window: the same numbers,
+    # and its time beside the planned mode's (streaming under a 1-byte
+    # budget, as the tests force it)
+    planned = rows[-1]["mode"]
+    for mode, batching in (("batched", "vmap"), ("per-node", "loop"),
+                           ("streaming", "auto")):
+        if mode == planned:
+            continue
+        if mode == "streaming":
+            os.environ["SLT_FEAST_MEMORY_BUDGET"] = "1"
+        try:
+            other = solve(f"lowest 50 of {g}^2, {mode} forced", a,
+                          (0.0, emax), lam[:50], dataclasses.replace(
+                              p, contour_batching=batching), warm=3,
+                          rel=True)
+        finally:
+            os.environ.pop("SLT_FEAST_MEMORY_BUDGET", None)
+        d = float(np.max(np.abs(np.asarray(other.values)
+                                - np.asarray(res.values))
+                         / np.asarray(res.values)))
+        rows[-1]["vs_planned_rel"] = d
+        print(f"phase 8 [{card}] {mode} against {planned}: eigenvalues "
+              f"within {d:.3e} relative (tol 1e-12)", flush=True)
+        require(rows[-1]["mode"] == mode, f"forced {mode}: {rows[-1]}")
+        require(d <= 1e-12, f"{mode} eigenvalues differ by {d}")
+        del other
+
+    # ---- 3a. count_eigenvalues on that window (16 probes)
+    est, count_s = timed(lambda: count_eigenvalues(
+        (0.0, emax), a, probes=16, params=p))
+    print(f"phase 8 [{card}] count_eigenvalues lowest window of {g}^2: "
+          f"estimate {est:.3f} for 50 (|est - 50| < 12.5) in {count_s:.3f} s",
+          flush=True)
+    require(abs(est - 50) < 12.5, f"count_eigenvalues {est}")
+    rows.append({"name": f"count_eigenvalues lowest window of {g}^2",
+                 "estimate": est, "exact": 50, "s": count_s})
+
+    # ---- 2. the same operator permuted, no dims: WELL and kernel D
+    coo = a.tocoo()
+    perm = torch.randperm(g * g, device=dev, generator=pgen)
+    ap = st.from_triples((g * g, g * g), perm[coo.row.long()],
+                         perm[coo.col.long()], coo.data).tocsr()
+    del coo, perm, a
+    pipeline.clear_pipeline_cache()
+    pp = FeastParams(tol=1e-10, backend="multifrontal")
+    res = solve(f"lowest 50 of {g}^2 permuted", ap, (0.0, emax), lam[:50],
+                pp, warm=0, launches_of=well_spmm)
+    require(rows[-1]["routes"][0] == "well" and rows[-1]["launches"] >= 1,
+            f"permuted run: routes {rows[-1]['routes']}, well_spmm "
+            f"launches {rows[-1]['launches']}")
+    del ap, res
+    pipeline.clear_pipeline_cache()
+
+    # ---- 3b. eigsh_sliced over about 100 pairs of 64**2
+    gs = grids[2]
+    lam_s = spectrum_2d(gs)
+    emax_s = float((lam_s[99] + lam_s[100]) / 2)
+    a_s = poisson_2d(gs, dtype=f64, device=dev)
+    res, sliced_s = timed(lambda: eigsh_sliced(
+        (0.0, emax_s), a_s, m0_max=64,
+        params=FeastParams(tol=1e-10, dims=(gs, gs), backend="multifrontal")))
+    err, err_rel = errors(res, lam_s[:100], (0.0, emax_s))
+    print(f"phase 8 [{card}] eigsh_sliced 100 lowest of {gs}^2, m0_max=64: "
+          f"{res.n_found} pairs in {sliced_s:.3f} s, {res.iterations} loops "
+          f"over the slices, worst residual {res.epsout:.3e}, against the "
+          f"analytic spectrum {err:.3e} (tol 1e-10), elementwise {err_rel:.3e}",
+          flush=True)
+    require(err <= 1e-10, f"eigsh_sliced error {err}")
+    rows.append({"name": f"eigsh_sliced 100 lowest of {gs}^2",
+                 "n_found": res.n_found, "s": sliced_s,
+                 "loops": res.iterations, "epsout": res.epsout,
+                 "max_err_scaled": err, "max_rel_err": err_rel})
+    del a_s, res
+    pipeline.clear_pipeline_cache()
+    torch.cuda.empty_cache()
+
+    # ---- 4. 1,048,576 dof: the 50 lowest (bench.py:792-858), then the
+    # interior window on the warm pipeline (bench.py:861-922)
+    gb = grids[1]
+    lam_b = spectrum_2d(gb)
+    a_b = poisson_2d(gb, dtype=f64, device=dev)
+    pb = FeastParams(tol=1e-10, dims=(gb, gb), backend="multifrontal")
+    torch.cuda.reset_peak_memory_stats(dev)
+    emax_b = float((lam_b[49] + lam_b[50]) / 2)
+    solve(f"lowest 50 of {gb}^2", a_b, (0.0, emax_b), lam_b[:50], pb, warm=1)
+    lo = float((lam_b[99] + lam_b[100]) / 2)
+    hi = float((lam_b[149] + lam_b[150]) / 2)
+    solve(f"interior [lambda_100, lambda_150) of {gb}^2", a_b, (lo, hi),
+          lam_b[100:150], pb, warm=0)
+    peak = max(r.get("peak_gb", 0.0) for r in rows)
+    launches = dia_spmm_kernel.launches
+    print(f"phase 8 FEAST: {time.perf_counter() - t_phase:.3f} s wall, "
+          f"dia_spmm launches {launches}, peak device memory {peak:.3f} GB "
+          f"(tol 75)", flush=True)
+    require(peak < 75.0, f"phase 8 peak device memory {peak} GB")
+    require(launches >= 1, "the FEAST path launched no dia_spmm")
+    del a_b
+    pipeline.clear_pipeline_cache()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -389,8 +701,14 @@ def main() -> None:
     from sparse_linear_tpu_torch.formats.structured import DIA, csr_to_dia
     from sparse_linear_tpu_torch.kernels import _build
     from sparse_linear_tpu_torch.kernels import spmv_well as spmv_well_module
-    from sparse_linear_tpu_torch.kernels.spmv import dia_spmv
+    from sparse_linear_tpu_torch.kernels.spmv import (
+        dia_spmm,
+        dia_spmm_planes,
+        dia_spmv,
+    )
     from sparse_linear_tpu_torch.kernels.spmv_dia import (
+        dia_spmm_kernel,
+        dia_spmm_planes_kernel,
         dia_spmv_chain,
         dia_spmv_kernel,
     )
@@ -419,6 +737,9 @@ def main() -> None:
     # checks added after a stream was in use draw from a third one, so that
     # the main paths keep the draws (and CG iteration counts) they had
     xgen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    # kernel A's multi-RHS form draws from a fourth (phase 7 has seed + 3,
+    # phase 8 seed + 5)
+    fgen = torch.Generator(device=dev).manual_seed(args.seed + 4)
     f32, f64 = torch.float32, torch.float64
 
     def randn(n, dtype, generator=gen):
@@ -485,11 +806,11 @@ def main() -> None:
         require(rel <= tol[a.dtype], f"dia_spmv {label} disagrees: {rel}")
         parity_abs[label] = err
 
-    def random_dia(shape, offsets, dtype):
+    def random_dia(shape, offsets, dtype, generator=gen):
         nr, nc = shape
         i = torch.arange(nr, device=dev)
         data = torch.randn((len(offsets), nr), dtype=dtype, device=dev,
-                           generator=gen)
+                           generator=generator)
         for d, off in enumerate(offsets):
             data[d].masked_fill_((i + off < 0) | (i + off >= nc), 0)
         return DIA(data=data, shape=shape, offsets=tuple(offsets))
@@ -546,6 +867,7 @@ def main() -> None:
     del a32, a64, x, y, ref
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    dia_spmm_parity(dev, fgen, random_dia, parity_abs)
 
     # WELL kernels C (SpMV) and D (SpMM) against their plain versions
     def check_well_spmv(label, w, generator=wgen):
@@ -875,6 +1197,51 @@ def main() -> None:
     def median_ms(f):
         return statistics.median(samples_ms(f) + samples_ms(f))
 
+    # kernel A's multi-RHS form at FEAST's m = 80 and at m = 16, both
+    # layouts; bytes: the diagonals, X and Y once.  The 1024**2 f64 m = 80
+    # column-major reading is FEAST's shape and goes to the JSON line.
+    dia_spmm_readings = []
+    for g_s in (1024, 2048):
+        for dtype in (f32, f64):
+            csr = poisson_2d(g_s, dtype=dtype, device=dev)
+            a = csr_to_dia(csr)
+            lib_a = library_csr(csr)
+            nnz = csr.nnz
+            del csr
+            n_s = g_s * g_s
+            item = a.data.element_size()
+            for m in (80, 16):
+                x = randn(n_s * m, dtype, fgen).reshape(n_s, m)
+                xp = x.T.contiguous()
+                nbytes = (len(a.offsets) * n_s + 2 * n_s * m) * item
+                k_ms, p_ms, l_ms = in_turns(lambda: dia_spmm(a, x),
+                                            lambda: dia_spmm_kernel(a, x),
+                                            lambda: lib_a @ x)
+                kp_ms, pp_ms, _ = in_turns(
+                    lambda: dia_spmm_planes(a, xp),
+                    lambda: dia_spmm_planes_kernel(a, xp))
+                b_ms, b_by = bound(nbytes, 2 * nnz * m, dtype)
+                dia_spmm_readings.append({
+                    "case": f"poisson_2d({g_s}) m={m} {dtype}", "ms": k_ms,
+                    "plain_ms": p_ms, "planes_ms": kp_ms,
+                    "planes_plain_ms": pp_ms, "library_ms": l_ms,
+                    "bound_ms": b_ms, "bound_by": b_by})
+                print(f"phase 5 time [{card}] dia_spmm poisson_2d({g_s}) "
+                      f"{dtype} m={m}: column-major {k_ms:.4f} ms "
+                      f"({nbytes / k_ms / 1e6:.1f} GB/s, plain {p_ms:.4f}), "
+                      f"plane-major {kp_ms:.4f} ms (plain {pp_ms:.4f}), bound "
+                      f"{b_ms:.4f} ms by {b_by} ({b_ms / k_ms:.1%} of it "
+                      f"reached column-major, {b_ms / kp_ms:.1%} plane-major),"
+                      f" library (cuSPARSE SpMM, X (n, {m}) row-major) "
+                      f"{l_ms:.4f} ms", flush=True)
+                if (g_s, m) == (1024, 80):
+                    record("dia_spmm", dtype, k_ms, p_ms, l_ms, nbytes,
+                           2 * nnz * m, f"torch.sparse_csr_tensor @ X "
+                           f"(cuSPARSE SpMM), X (n, {m}) row-major")
+                del x, xp
+            del a, lib_a
+            torch.cuda.empty_cache()
+
     def time_spmm(name, label, w, lib, nnz, xp):
         """Kernel D on one operator and X: the column-major well_spmm is
         kernel D alone (it reads X (nc, m) and writes Y (nr, m) as they
@@ -1134,6 +1501,10 @@ def main() -> None:
     # ------------------------------------------- 7. direct solver, full size
     direct = direct_solver_phase(dev, card, args.seed)
 
+    # ------------------------------------------------- 8. FEAST, full size
+    feast = feast_phase(dev, card, args.seed)
+    launches["dia_spmm"] = dia_spmm_kernel.launches
+
     def entry_of(name, dtype, replaces, launches_of, err, shape, also=()):
         t = times[f"{name} {dtype}"]
         out = {"name": name, "route": "cuda",
@@ -1161,6 +1532,17 @@ def main() -> None:
     spmm_entry["readings"] = readings
     spmm_entry["more_m"] = more_m
 
+    spmm_dia_entry = entry_of(
+        "dia_spmm", f64, f"{XLA_SPMV}:45", "dia_spmm",
+        max(v for k, v in parity_abs.items()
+            if k.startswith("dia_spmm") and "float64" in k),
+        "poisson_2d(1024) f64, m=80 column-major X (FEAST's shape), L2 "
+        "flushed; launches from the FEAST path (phase 8); the XLA forms "
+        "dia_spmm / dia_spmm_planes are not pallas_call sites",
+        (f"{XLA_SPMV}:68",))
+    spmm_dia_entry["readings"] = dia_spmm_readings
+
+    print(json.dumps({"feast": feast, "card": card}))
     print(json.dumps({"direct": direct, "card": card}))
     print(json.dumps({"kernels": [
         entry_of("dia_spmv", f32, f"{PALLAS}:133", "dia_spmv",
@@ -1174,6 +1556,7 @@ def main() -> None:
                  "permuted poisson 2048^2 f64, L2 flushed",
                  (f"{PALLAS_WELL64}:195",)),
         spmm_entry,
+        spmm_dia_entry,
     ], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

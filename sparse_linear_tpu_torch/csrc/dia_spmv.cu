@@ -37,6 +37,31 @@
 // before the guarded loads: without that nvcc spent more registers on the
 // loop and the gain was gone.)
 //
+// Kernel A's multi-RHS form, dia_spmm: Y[i, t] = sum_d data[d, i] *
+// X[i + off_d, t] for m right-hand sides, counting only 0 <= i + off_d < nc,
+// with X and Y column-major ((nc, m) and (nr, m), row-major storage) or
+// plane-major ((m, nc) and (m, nr)).  It replaces the XLA forms that the
+// JAX package's FEAST runs on a banded operator, sparse_linear_tpu/kernels/
+// spmv.py:45-90 (dia_spmm, dia_spmm_planes), called through eig/
+// real_pipeline.py:124-132 (_structured_op).  What should bound it is
+// memory: an entry of Y takes 2 flops a diagonal against at least
+// 2 * itemsize bytes of X and Y (1.38 GB at 1024^2, 5 diagonals, m = 80 in
+// f64: 0.41 ms at 3.35 TB/s).  Measured (NVIDIA H100 80GB HBM3 at 700.00 W,
+// chip_smoke.py phase 5, 1024^2, m = 80) it is bound by its instructions:
+// column-major 1.11 ms f64 and 0.94 ms f32 (37 % and 22 % of the bound:
+// a 32-bit division and 64-bit index arithmetic per entry and diagonal),
+// plane-major 0.76 / 0.68 ms.  The design is the simple one that is right
+// (a row-per-warp form without the division is later work).  Column-major:
+// a block takes a few consecutive rows and its threads walk their (rows, m)
+// entries in storage order, so a warp's loads of X (at e + off_d * m) and
+// its stores of Y are coalesced whatever m, and data[d, i] is one broadcast
+// load for the threads of a row; the +-g offsets re-read rows of X that a
+// block g rows away read, which L2 serves.  Plane-major: one thread takes a
+// row and loops over the m planes, coalesced along i.  Each entry sums its
+// diagonals in stored order from zero with one fma each, as kernel A's
+// dia_row does, so every column of the result is bitwise kernel A on that
+// column.  wgmma, TMA and shared-memory X tiles are later work.
+//
 // What bounds them: memory.  Kernel A moves (ndiag + 2) * nr * itemsize
 // bytes (117 MB for f32 at 2048^2) for 2 * ndiag flops per row, far below
 // the card's balance point, so wgmma and TMA do not apply.  The design is
@@ -45,7 +70,7 @@
 // x[i + off_d] (both coalesced), with alpha fused into the store.  Shared
 // memory x tiles and L2 reuse across steps are later work.
 //
-// Both kernels launch on the caller's stream, allocate nothing, and return
+// The kernels launch on the caller's stream, allocate nothing, and return
 // cudaGetLastError() after the launch (0 on success).
 
 #include <cooperative_groups.h>
@@ -60,6 +85,16 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kChainThreads = 1024;  // kernel B: one block per SM
 constexpr int kChainRows = 4;        // rows a thread of kernel B takes at once
+constexpr int kSpmmEntries = 1024;   // entries of Y a dia_spmm block takes
+
+// a * b + c rounded once: the one fma of every term of kernel A and of its
+// multi-RHS form (written out, so that no two loops contract differently)
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
 
 // One output row of kernel A.  No thread writes x during the launch.
 template <typename T>
@@ -70,7 +105,7 @@ __device__ __forceinline__ T dia_row(const T* __restrict__ data,
   T acc = T(0);
   for (int64_t d = 0; d < ndiag; ++d) {
     const int64_t j = i + __ldg(offsets + d);
-    if (j >= 0 && j < nc) acc += __ldg(data + d * nr + i) * x[j];
+    if (j >= 0 && j < nc) acc = fma_t(__ldg(data + d * nr + i), x[j], acc);
   }
   return acc;
 }
@@ -84,6 +119,66 @@ __global__ void __launch_bounds__(kThreads)
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < nr; i += stride) {
     y[i] = alpha * dia_row(data, offsets, x, ndiag, nr, nc, i);
+  }
+}
+
+// Column-major dia_spmm: a block takes rows_per_block rows at a time and
+// its threads walk their rows * m entries e in storage order (row e / m,
+// right-hand side e % m).  rows_per_block * m fits 32 bits (the launcher
+// keeps it near kSpmmEntries).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dia_spmm_kernel(const T* __restrict__ data,
+                    const int64_t* __restrict__ offsets,
+                    const T* __restrict__ x, T* __restrict__ y, int64_t ndiag,
+                    int64_t nr, int64_t nc, int64_t m,
+                    int64_t rows_per_block) {
+  const unsigned um = static_cast<unsigned>(m);
+  const int64_t step = static_cast<int64_t>(gridDim.x) * rows_per_block;
+  for (int64_t row0 = blockIdx.x * rows_per_block; row0 < nr; row0 += step) {
+    const int64_t rows =
+        nr - row0 < rows_per_block ? nr - row0 : rows_per_block;
+    const unsigned count = static_cast<unsigned>(rows) * um;
+    const T* xb = x + row0 * m;
+    T* yb = y + row0 * m;
+    for (unsigned e = threadIdx.x; e < count; e += blockDim.x) {
+      const int64_t i = row0 + e / um;
+      T acc = T(0);
+      for (int64_t d = 0; d < ndiag; ++d) {
+        const int64_t off = __ldg(offsets + d);
+        const int64_t j = i + off;
+        if (j >= 0 && j < nc) {
+          acc = fma_t(__ldg(data + d * nr + i),
+                      xb[static_cast<int64_t>(e) + off * m], acc);
+        }
+      }
+      yb[e] = acc;
+    }
+  }
+}
+
+// Plane-major dia_spmm: one thread a row i, looping over the m planes; X is
+// (m, nc), Y (m, nr).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dia_spmm_planes_kernel(const T* __restrict__ data,
+                           const int64_t* __restrict__ offsets,
+                           const T* __restrict__ x, T* __restrict__ y,
+                           int64_t ndiag, int64_t nr, int64_t nc, int64_t m) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < nr; i += stride) {
+    for (int64_t t = 0; t < m; ++t) {
+      const T* xt = x + t * nc;
+      T acc = T(0);
+      for (int64_t d = 0; d < ndiag; ++d) {
+        const int64_t j = i + __ldg(offsets + d);
+        if (j >= 0 && j < nc) {
+          acc = fma_t(__ldg(data + d * nr + i), xt[j], acc);
+        }
+      }
+      y[t * nr + i] = acc;
+    }
   }
 }
 
@@ -182,6 +277,36 @@ int launch_spmv(const void* data, const void* offsets, const void* x, void* y,
 }
 
 template <typename T>
+int launch_spmm(const void* data, const void* offsets, const void* x, void* y,
+                long long ndiag, long long nr, long long nc, long long m,
+                int planes, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
+  const long long cap = static_cast<long long>(sms) * 16;
+  const T* data_p = static_cast<const T*>(data);
+  const int64_t* offsets_p = static_cast<const int64_t*>(offsets);
+  const T* x_p = static_cast<const T*>(x);
+  T* y_p = static_cast<T*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (planes) {
+    const long long want = (nr + kThreads - 1) / kThreads;
+    const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
+    dia_spmm_planes_kernel<T><<<blocks, kThreads, 0, s>>>(
+        data_p, offsets_p, x_p, y_p, ndiag, nr, nc, m);
+  } else {
+    const long long rows = m < kSpmmEntries ? kSpmmEntries / m : 1;
+    const long long want = (nr + rows - 1) / rows;
+    const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
+    dia_spmm_kernel<T><<<blocks, kThreads, 0, s>>>(
+        data_p, offsets_p, x_p, y_p, ndiag, nr, nc, m, rows);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
 int launch_chain(const void* data, const void* offsets, const void* x,
                  void* buf0, void* buf1, long long ndiag, long long n, int k,
                  double alpha, int device, void* stream) {
@@ -259,6 +384,20 @@ int slt_dia_spmv_f64(const void* data, const void* offsets, const void* x,
                      double alpha, int device, void* stream) {
   return launch_spmv<double>(data, offsets, x, y, ndiag, nr, nc, alpha, device,
                              stream);
+}
+
+int slt_dia_spmm_f32(const void* data, const void* offsets, const void* x,
+                     void* y, long long ndiag, long long nr, long long nc,
+                     long long m, int planes, int device, void* stream) {
+  return launch_spmm<float>(data, offsets, x, y, ndiag, nr, nc, m, planes,
+                            device, stream);
+}
+
+int slt_dia_spmm_f64(const void* data, const void* offsets, const void* x,
+                     void* y, long long ndiag, long long nr, long long nc,
+                     long long m, int planes, int device, void* stream) {
+  return launch_spmm<double>(data, offsets, x, y, ndiag, nr, nc, m, planes,
+                             device, stream);
 }
 
 int slt_dia_chain_f32(const void* data, const void* offsets, const void* x,

@@ -13,8 +13,8 @@ COO entries carry sentinel coordinates (row == nrows, col == ncols, value
 0); padded CSR/CSC entries lie past ``indptr[-1]``.
 
 ``@`` and ``*`` between two sparse matrices are SpGEMM
-(:func:`ops.spgemm.spgemm`), as in the JAX package.  The elementwise union
-(``+``/``-``) is not ported yet: it raises ``NotImplementedError``.
+(:func:`ops.spgemm.spgemm`), and ``+``/``-`` the union merge
+(:func:`ops.linalg.add` / ``lin``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,12 +36,6 @@ from sparse_linear_tpu_torch.formats.base import (
 
 __all__ = ["COO", "CSR", "CSC", "from_triples", "eye", "zeros", "diag"]
 
-_NOT_PORTED = (
-    "{op} between two sparse matrices is not ported yet "
-    "(ROADMAP.md queue 1 item 6: remaining op surface)"
-)
-
-
 def _shape2(shape):
     nr, nc = shape
     return (int(nr), int(nc))
@@ -50,7 +44,8 @@ def _shape2(shape):
 class _MatrixOpsMixin(TensorFields):
     """Operator sugar shared by all matrix formats: ``@`` is the
     matrix-vector / matrix-dense product, ``*`` by a scalar scales, and both
-    with a sparse operand are SpGEMM."""
+    with a sparse operand are SpGEMM; ``+``/``-`` merge over the union
+    pattern."""
 
     def __matmul__(self, other):
         from sparse_linear_tpu_torch.ops import linalg, spgemm
@@ -76,10 +71,14 @@ class _MatrixOpsMixin(TensorFields):
         return linalg.scale(self, other)
 
     def __add__(self, other):
-        raise NotImplementedError(_NOT_PORTED.format(op="+"))
+        from sparse_linear_tpu_torch.ops import linalg
+
+        return linalg.add(self, other)
 
     def __sub__(self, other):
-        raise NotImplementedError(_NOT_PORTED.format(op="-"))
+        from sparse_linear_tpu_torch.ops import linalg
+
+        return linalg.lin(1.0, self, -1.0, other)
 
     def __neg__(self):
         return self.map_values(torch.negative)
@@ -90,6 +89,25 @@ class _MatrixOpsMixin(TensorFields):
     def ctrans(self):
         """Conjugate transpose."""
         return self.T.conj()
+
+    def is_hermitian(self, tol: float = 0.0) -> bool:
+        """ctrans m == m (reference ``hermitian``, Matrix/Sparse.hs:377-379;
+        exact equality there, ``tol`` generalizes).
+
+        O(nnz) on the canonical CSR, never densified: the pattern of A and
+        of ctrans(A) must agree entry for entry, and their values within
+        ``tol``."""
+        nr, nc = self.shape
+        if nr != nc:
+            return False
+        from sparse_linear_tpu_torch.ops.build import trim
+
+        a = trim(self.tocsr())
+        h = trim(a.ctrans().tocsr())
+        for p, q in ((a.indptr, h.indptr), (a.indices, h.indices)):
+            if not torch.equal(p.to(torch.int64), q.to(torch.int64)):
+                return False
+        return bool(torch.all(torch.abs(a.data - h.data) <= tol))
 
     @property
     def dtype(self):

@@ -34,6 +34,8 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _SPMV_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_double,
               ctypes.c_int, _P]
+_DIA_SPMM_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_int,
+                  ctypes.c_int, _P]
 _CHAIN_ARGS = [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int,
                ctypes.c_double, ctypes.c_int, _P]
 _WELL_SPMV_ARGS = [_P, _P, _P, _P, _P, _I64, ctypes.c_int, _P]
@@ -42,6 +44,8 @@ _WELL_SPMM_ARGS = [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_int,
 _SIGNATURES = {
     "slt_dia_spmv_f32": _SPMV_ARGS,
     "slt_dia_spmv_f64": _SPMV_ARGS,
+    "slt_dia_spmm_f32": _DIA_SPMM_ARGS,
+    "slt_dia_spmm_f64": _DIA_SPMM_ARGS,
     "slt_dia_chain_f32": _CHAIN_ARGS,
     "slt_dia_chain_f64": _CHAIN_ARGS,
     "slt_well_spmv_f32": _WELL_SPMV_ARGS,

@@ -8,11 +8,19 @@ Counterpart of :mod:`sparse_linear_tpu.kernels.spmv_pallas`.
   ``_dia_spmv_streamed``).  One CUDA kernel takes any shape.
 * :func:`dia_spmv_chain` (kernel B) replaces ``_chain_kernel`` /
   ``dia_spmv_chain``: y = (alpha A)^k x in one cooperative launch.
+* :func:`dia_spmm_kernel` and :func:`dia_spmm_planes_kernel` (kernel A's
+  multi-RHS form, ``dia_spmm_kernel<T>`` / ``dia_spmm_planes_kernel<T>``)
+  replace the XLA forms ``sparse_linear_tpu/kernels/spmv.py:45-90``
+  (``dia_spmm``, ``dia_spmm_planes``) that FEAST's banded route runs
+  (``eig/real_pipeline.py:124-132``): Y = A X for X column-major (ncols, m)
+  or plane-major (m, ncols).  Every column is bitwise kernel A on it.
 
-A wrapper takes the plain PyTorch version (:func:`.spmv.dia_spmv`) only
-because its tensors lie on the CPU.  On CUDA tensors it launches its kernel
+A wrapper takes the plain PyTorch version (:func:`.spmv.dia_spmv`,
+:func:`.spmv.dia_spmm`, :func:`.spmv.dia_spmm_planes`) only because its
+tensors lie on the CPU.  On CUDA tensors it launches its kernel
 on the current stream or raises; nothing falls back.  Each wrapper counts
-its kernel launches in ``.launches`` (a plain int; set it to 0 to reset).
+its kernel launches in ``.launches`` (a plain int; set it to 0 to reset);
+both multi-RHS wrappers count in ``dia_spmm_kernel.launches``.
 """
 
 from __future__ import annotations
@@ -20,9 +28,14 @@ from __future__ import annotations
 import torch
 
 from sparse_linear_tpu_torch.kernels import _build
-from sparse_linear_tpu_torch.kernels.spmv import dia_spmv
+from sparse_linear_tpu_torch.kernels.spmv import (
+    dia_spmm,
+    dia_spmm_planes,
+    dia_spmv,
+)
 
-__all__ = ["dia_spmv_kernel", "dia_spmv_chain"]
+__all__ = ["dia_spmv_kernel", "dia_spmv_chain", "dia_spmm_kernel",
+           "dia_spmm_planes_kernel"]
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
 
@@ -40,17 +53,22 @@ def _device_of(name, *tensors) -> torch.device:
     return device
 
 
+def _check_data(name, dia) -> None:
+    """``data`` must hold one row of nrows entries per offset: the kernels
+    index it without bounds checks."""
+    if tuple(dia.data.shape) != (len(dia.offsets), dia.shape[0]):
+        raise ValueError(
+            f"{name}: DIA data of shape {tuple(dia.data.shape)} does not "
+            f"match {len(dia.offsets)} offsets x {dia.shape[0]} rows")
+
+
 def _flat(name, dia, x):
     """``x`` as a 1-D vector of length ncols, and the row width to give the
     result back in when ``x`` came pre-tiled (2-D with ncols elements, as
-    the JAX package's ``(n // 128, 128)`` layout), else None.  Also checks
-    that ``data`` holds one row of nrows entries per offset, which the
-    kernels index without bounds checks."""
+    the JAX package's ``(n // 128, 128)`` layout), else None; ``data`` is
+    checked with :func:`_check_data`."""
     nr, nc = dia.shape
-    if tuple(dia.data.shape) != (len(dia.offsets), nr):
-        raise ValueError(
-            f"{name}: DIA data of shape {tuple(dia.data.shape)} does not "
-            f"match {len(dia.offsets)} offsets x {nr} rows")
+    _check_data(name, dia)
     if x.ndim == 2 and x.numel() == nc:
         return x.reshape(-1), x.shape[1]
     if x.ndim != 1 or x.shape[0] != nc:
@@ -176,3 +194,67 @@ def _launch_chain(dia, x, k, alpha, device):
 
 
 dia_spmv_chain.launches = 0
+
+
+def dia_spmm_kernel(dia, x: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for DIA storage and a dense column-major X of shape
+    (ncols, m); a 1-D x is :func:`dia_spmv_kernel`.
+
+    ``data`` and X are promoted to ``torch.result_type(data, X)``.  Complex
+    on CUDA raises ``TypeError``: a caller with complex X on a real
+    operator passes the real (ncols, 2m) block ``torch.view_as_real(X)``,
+    as ``eig.pipeline.StructuredOp`` does."""
+    name = "dia_spmm_kernel"
+    if x.ndim == 1:
+        return dia_spmv_kernel(dia, x)
+    device = _device_of(name, dia.data, x)
+    nr, nc = dia.shape
+    if x.ndim != 2 or x.shape[0] != nc:
+        raise ValueError(
+            f"{name}: dimension mismatch {dia.shape} @ {tuple(x.shape)}")
+    _check_data(name, dia)
+    if device.type == "cpu":
+        return dia_spmm(dia, x)
+    return _launch_spmm(name, dia, x, False, device)
+
+
+def dia_spmm_planes_kernel(dia, xp: torch.Tensor) -> torch.Tensor:
+    """Plane-major Y = A @ X for DIA storage: ``xp`` of shape (m, ncols),
+    one right-hand side a row, returns (m, nrows).  Complex on CUDA raises
+    ``TypeError``."""
+    name = "dia_spmm_planes_kernel"
+    device = _device_of(name, dia.data, xp)
+    nr, nc = dia.shape
+    if xp.ndim != 2 or xp.shape[1] != nc:
+        raise ValueError(
+            f"{name}: expected (m, {nc}) planes, got {tuple(xp.shape)}")
+    _check_data(name, dia)
+    if device.type == "cpu":
+        return dia_spmm_planes(dia, xp)
+    return _launch_spmm(name, dia, xp, True, device)
+
+
+def _launch_spmm(name, dia, x, planes, device):
+    nr, nc = dia.shape
+    dtype = torch.result_type(dia.data, x)
+    _kernel_dtype(name, dtype)
+    m = x.shape[0] if planes else x.shape[1]
+    if m >= 2**31:
+        raise ValueError(f"{name}: m must be < 2**31")
+    data = dia.data.to(dtype).contiguous()
+    x = x.to(dtype).contiguous()
+    y = torch.empty((m, nr) if planes else (nr, m), dtype=dtype,
+                    device=device)
+    if nr == 0 or m == 0:
+        return y
+    lib = _build.load_library()
+    fn = lib.slt_dia_spmm_f32 if dtype == torch.float32 else lib.slt_dia_spmm_f64
+    code = fn(data.data_ptr(), dia.offsets_tensor.data_ptr(), x.data_ptr(),
+              y.data_ptr(), len(dia.offsets), nr, nc, m, int(planes),
+              device.index, _stream(device))
+    _build.check(lib, code, f"{name} launch")
+    dia_spmm_kernel.launches += 1
+    return y
+
+
+dia_spmm_kernel.launches = 0

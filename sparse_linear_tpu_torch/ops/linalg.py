@@ -1,10 +1,13 @@
 """BLAS-like sparse linear algebra over the interchange formats.
 
-Counterpart of the ``spmv``/``axpy``/``spmm``/``scale`` part of
-:mod:`sparse_linear_tpu.ops.linalg`: a gather of x by column and an
-``index_add_`` by row.  On the card these are the independent CSR reference
-that residual checks use beside the DIA kernels.  ``glin``/``lin``/``add``
-are not ported yet (ROADMAP.md queue 1 item 6).
+Counterpart of :mod:`sparse_linear_tpu.ops.linalg` without
+``elementwise_mul`` (ROADMAP.md queue 1 item 6).  ``spmv``/``spmm`` are a
+gather of x by column and an ``index_add_`` by row; on the card they are the
+independent CSR reference that residual checks use beside the DIA kernels.
+``glin``/``lin``/``add`` are the reference's union merge (``glin``,
+Matrix/Sparse.hs:401-431) as one sort of the (row, col) keys of both
+operands: ``torch.unique`` finds the union pattern, and each slot folds its
+A and B values as the reference's workspace does.
 
 ``index_add_`` on CUDA sums each row's products in an unspecified order, so
 results agree with the JAX package to rounding (1e-12 relative in f64), not
@@ -15,9 +18,11 @@ from __future__ import annotations
 
 import torch
 
+from sparse_linear_tpu_torch.dtypes import index_dtype
+from sparse_linear_tpu_torch.formats.base import compute_indptr
 from sparse_linear_tpu_torch.formats.matrix import COO, CSC, CSR
 
-__all__ = ["spmv", "axpy", "spmm", "scale"]
+__all__ = ["spmv", "axpy", "spmm", "scale", "glin", "lin", "add"]
 
 
 def _valid_coords(mat):
@@ -68,3 +73,55 @@ def spmm(mat, b: torch.Tensor) -> torch.Tensor:
 def scale(mat, alpha):
     """alpha * A elementwise (reference ``scale``)."""
     return mat.map_values(lambda v: v * alpha)
+
+
+def glin(c0, add_a, mat_a, add_b, mat_b):
+    """Generalized elementwise combine over the union pattern with the
+    reference's fold semantics (``glin``, Matrix/Sparse.hs:401-424): a
+    workspace initialized to ``c0``; where A has an entry,
+    ``c := add_a(c, a)``; then where B has an entry, ``c := add_b(c, b)``.
+
+    Every position that either operand stores stays in the pattern, even
+    where the fold gives zero.  Returns an exact-size canonical CSR on the
+    operands' device."""
+    if mat_a.shape != mat_b.shape:
+        raise ValueError(f"glin: shape mismatch {mat_a.shape} vs {mat_b.shape}")
+    nr, nc = mat_a.shape
+    ra, ca, va = _valid_coords(mat_a)
+    rb, cb, vb = _valid_coords(mat_b)
+    dtype = torch.result_type(va, vb)
+    key = torch.cat([ra.to(torch.int64) * nc + ca.to(torch.int64),
+                     rb.to(torch.int64) * nc + cb.to(torch.int64)])
+    ukey, slot = torch.unique(key, sorted=True, return_inverse=True)
+    del key
+    nu, na = ukey.shape[0], ra.shape[0]
+
+    def occupied(sel, vals):
+        val = torch.zeros((nu,), dtype=dtype, device=ukey.device)
+        occ = torch.zeros((nu,), dtype=torch.bool, device=ukey.device)
+        val[sel] = vals.to(dtype)
+        occ[sel] = True
+        return val, occ
+
+    a_val, a_occ = occupied(slot[:na], va)
+    b_val, b_occ = occupied(slot[na:], vb)
+    c = torch.full((nu,), c0, dtype=dtype, device=ukey.device)
+    for occ, val, add in ((a_occ, a_val, add_a), (b_occ, b_val, add_b)):
+        new = add(c, val)
+        c = torch.where(occ, new, c.to(new.dtype))
+    rows = torch.div(ukey, nc, rounding_mode="floor")
+    return CSR(indptr=compute_indptr(rows, nr),
+               indices=torch.remainder(ukey, nc).to(index_dtype), data=c,
+               shape=(nr, nc))
+
+
+def lin(alpha, mat_a, beta, mat_b):
+    """alpha*A + beta*B (reference ``lin``, Matrix/Sparse.hs:426-431)."""
+    return glin(
+        0, lambda c, a: c + alpha * a, mat_a, lambda c, b: c + beta * b, mat_b
+    )
+
+
+def add(mat_a, mat_b):
+    """A + B (reference Num ``+``, Matrix/Sparse.hs:100-113)."""
+    return lin(1, mat_a, 1, mat_b)

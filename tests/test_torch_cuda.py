@@ -1,8 +1,10 @@
 """The port's Hopper kernels against their plain versions, on the card:
-kernels A and B (DIA SpMV and chain) and kernels C and D (WELL SpMV and
-SpMM); and the multifrontal direct solver on CUDA tensors against the port
-on the CPU (f64/c128 within 1e-12, f32/c64 within 1e-5), every block and
-solution on the card.
+kernels A and B (DIA SpMV and chain), kernel A's multi-RHS form (DIA
+SpMM, both layouts, every column bitwise kernel A) and kernels C and D
+(WELL SpMV and SpMM); the multifrontal direct solver on CUDA tensors
+against the port on the CPU (f64/c128 within 1e-12, f32/c64 within 1e-5),
+every block and solution on the card; and FEAST on the card against the
+analytic spectrum.
 
 Every test here needs an NVIDIA GPU and nvcc: it is marked ``cuda`` and
 skips without a card.  This file imports no JAX, so it also runs where JAX
@@ -26,7 +28,13 @@ import sparse_linear_tpu_torch as st  # noqa: E402
 from sparse_linear_tpu_torch.formats.structured import DIA  # noqa: E402
 from sparse_linear_tpu_torch.formats.well import csr_to_well  # noqa: E402
 from sparse_linear_tpu_torch.kernels.spmv import dia_spmv  # noqa: E402
+from sparse_linear_tpu_torch.kernels.spmv import (  # noqa: E402
+    dia_spmm,
+    dia_spmm_planes,
+)
 from sparse_linear_tpu_torch.kernels.spmv_dia import (  # noqa: E402
+    dia_spmm_kernel,
+    dia_spmm_planes_kernel,
     dia_spmv_chain,
     dia_spmv_kernel,
 )
@@ -152,6 +160,162 @@ def test_dia_spmv_chain_matches_plain_steps(dev, dtype, k):
     assert _rel(y, ref) <= (1e-5 if dtype == torch.float32 else 1e-12)
     with pytest.raises(ValueError):
         dia_spmv_chain(a, x, 0)
+
+
+# --------------------------------- kernel A's multi-RHS form (DIA SpMM)
+
+DIA_CASES = ["p2d_32", "p2d_45", "p3d_9", "wide", "tall", "flat"]
+
+
+def _dia_case(case, dtype, dev):
+    rng = np.random.default_rng(0)
+    if case.startswith("p2d"):
+        return poisson_2d(int(case[4:]), dtype=dtype, fmt="dia", device=dev)
+    if case == "p3d_9":
+        return poisson_3d(9, dtype=dtype, fmt="dia", device=dev)
+    if case == "wide":
+        return _random_dia(rng, (1024, 1024), [-300, -128, -5, 0, 7, 129, 515],
+                           dtype, dev)
+    if case == "tall":
+        return _random_dia(rng, (700, 300), [-400, -1, 0, 2, 299], dtype, dev)
+    return _random_dia(rng, (300, 700), [-299, -3, 0, 5, 650], dtype, dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m", [1, 5, 16, 33, 80, 96])
+@pytest.mark.parametrize("case", DIA_CASES)
+def test_dia_spmm_kernel_matches_plain(dev, dtype, m, case):
+    a = _dia_case(case, dtype, dev)
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.standard_normal((a.shape[1], m)), dtype=dtype,
+                        device=dev)
+    before = dia_spmm_kernel.launches
+    y = dia_spmm_kernel(a, x)
+    yp = dia_spmm_planes_kernel(a, x.T.contiguous())
+    torch.cuda.synchronize()
+    assert dia_spmm_kernel.launches == before + 2
+    assert y.shape == (a.shape[0], m) and yp.shape == (m, a.shape[0])
+    assert _rel(y, dia_spmm(a, x)) <= RTOL[dtype]
+    assert _rel(yp, dia_spmm_planes(a, x.T.contiguous())) <= RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m", [16, 80])
+@pytest.mark.parametrize("case", ["p2d_45", "wide", "flat"])
+def test_dia_spmm_columns_are_kernel_a(dev, dtype, m, case):
+    """Each entry sums its diagonals in stored order from zero with one fma,
+    as kernel A does: every column of either layout is bitwise kernel A on
+    that column."""
+    a = _dia_case(case, dtype, dev)
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (a.shape[1], m)), dtype=dtype, device=dev)
+    y = dia_spmm_kernel(a, x)
+    yp = dia_spmm_planes_kernel(a, x.T.contiguous())
+    for t in range(m):
+        col = dia_spmv_kernel(a, x[:, t].contiguous())
+        assert torch.equal(y[:, t], col) and torch.equal(yp[t], col)
+    assert torch.equal(dia_spmm_kernel(a, x), y)
+
+
+def test_dia_spmm_kernel_complex_and_refusals(dev):
+    a = poisson_2d(16, dtype=torch.float64, fmt="dia", device=dev)
+    rng = np.random.default_rng(6)
+    xc = torch.as_tensor(rng.standard_normal((256, 3))
+                         + 1j * rng.standard_normal((256, 3)), device=dev)
+    # complex X on a real operator: StructuredOp passes the real (nc, 2m)
+    # block, one launch; the wrapper itself refuses complex in both layouts
+    from sparse_linear_tpu_torch.eig.pipeline import _structured_op
+    op = _structured_op(poisson_2d(16, dtype=torch.float64, device=dev))
+    assert op.route == "dia"
+    before = dia_spmm_kernel.launches
+    assert _rel(op(xc), dia_spmm(a, xc)) <= 1e-12
+    assert dia_spmm_kernel.launches == before + 1
+    with pytest.raises(TypeError, match="item 10"):
+        dia_spmm_kernel(a, xc)
+    with pytest.raises(TypeError, match="item 10"):
+        dia_spmm_planes_kernel(a, xc.T.contiguous())
+    ac = poisson_2d(16, dtype=torch.complex128, fmt="dia", device=dev)
+    with pytest.raises(TypeError, match="complex"):
+        dia_spmm_kernel(ac, xc)
+    with pytest.raises(ValueError, match="different devices"):
+        dia_spmm_kernel(a, xc.cpu())
+
+
+def test_feast_eigsh_on_card(dev):
+    """eigsh at 24**2 on the card: the DIA route through kernel A's
+    multi-RHS form, the permuted operator through kernel D, both against
+    the analytic spectrum within 1e-10."""
+    from sparse_linear_tpu_torch.eig import pipeline
+    from sparse_linear_tpu_torch.eig.feast import (
+        INFO_OK, FeastParams, count_eigenvalues, eigsh)
+
+    g = 24
+    lam1 = 4 * np.sin(np.arange(1, g + 1) * np.pi / (2 * (g + 1))) ** 2
+    lam = np.sort((lam1[:, None] + lam1[None, :]).ravel())
+    emax = float((lam[19] + lam[20]) / 2)
+    a = poisson_2d(g, dtype=torch.float64, device=dev)
+    before = dia_spmm_kernel.launches
+    res = eigsh(32, (0.0, emax), a, FeastParams(
+        tol=1e-10, backend="multifrontal", dims=(g, g)))
+    assert dia_spmm_kernel.launches > before
+    assert res.info == INFO_OK and res.n_found == 20
+    np.testing.assert_allclose(res.values, lam[:20], rtol=1e-10)
+    assert res.vectors.device.type == "cuda"
+    assert pipeline.last_run["routes"] == ("dia", "identity")
+    before = well_spmm.launches
+    res = eigsh(32, (0.0, emax), _permuted_poisson(g, torch.float64, dev),
+                FeastParams(tol=1e-10, backend="multifrontal"))
+    assert well_spmm.launches > before
+    assert res.info == INFO_OK
+    np.testing.assert_allclose(res.values, lam[:20], rtol=1e-10)
+    est = count_eigenvalues((0.0, emax), a, params=FeastParams(
+        backend="multifrontal", dims=(g, g)))
+    assert abs(est - 20) < 5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["one_full_row_a_slice",
+                                  "three_full_rows_and_the_diagonal"])
+def test_feast_low_fill_operator_runs_kernel_d(dev, monkeypatch, dtype,
+                                               case):
+    """A real operator that is not banded runs on kernel D however low its
+    WELL fill: the plain ``ops.linalg.spmm`` is never reached on CUDA."""
+    from sparse_linear_tpu_torch.eig import pipeline
+    from sparse_linear_tpu_torch.ops import linalg
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("ops.linalg.spmm reached on CUDA")
+
+    monkeypatch.setattr(linalg, "spmm", refuse)
+    n = 2048
+    full = np.arange(0, n, 32) if case == "one_full_row_a_slice" else \
+        np.array([1, n // 2, n - 1])
+    rows = full.repeat(n)
+    cols = np.tile(np.arange(n), full.size)
+    if case != "one_full_row_a_slice":
+        rows = np.concatenate([rows, np.arange(n)])
+        cols = np.concatenate([cols, np.arange(n)])
+    vals = np.random.default_rng(7).standard_normal(rows.size)
+    a = st.from_triples((n, n), torch.as_tensor(rows), torch.as_tensor(cols),
+                        torch.as_tensor(vals, dtype=dtype),
+                        device=dev).tocsr()
+    op = pipeline._structured_op(a)
+    assert op.route == "well"
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal((n, 5)),
+                        dtype=dtype, device=dev)
+    xc = torch.complex(x, x.flip(0))
+    before = well_spmm.launches
+    y, yc = op(x), op(xc)
+    torch.cuda.synchronize()
+    assert well_spmm.launches == before + 2
+    dense = a.todense()
+    scale = max(float(dense.abs().max()), 1.0) * n
+    assert float((y - dense @ x).abs().max()) <= RTOL[dtype] * scale
+    assert float((yc - dense.to(xc.dtype) @ xc).abs().max()) <= \
+        RTOL[dtype] * scale
 
 
 # ------------------------------------------- WELL kernels C and D (slice 2)

@@ -26,6 +26,8 @@ from sparse_linear_tpu_torch.formats import structured as tst  # noqa: E402
 from sparse_linear_tpu_torch.kernels import _build  # noqa: E402
 from sparse_linear_tpu_torch.kernels import spmv as tspmv  # noqa: E402
 from sparse_linear_tpu_torch.kernels.spmv_dia import (  # noqa: E402
+    dia_spmm_kernel,
+    dia_spmm_planes_kernel,
     dia_spmv_chain,
     dia_spmv_kernel,
 )
@@ -43,9 +45,11 @@ def _no_launches():
     """On CPU tensors the wrappers run the plain version: no launch is
     counted and the kernel library is never built."""
     k0, c0 = dia_spmv_kernel.launches, dia_spmv_chain.launches
+    m0 = dia_spmm_kernel.launches
     yield
     assert dia_spmv_kernel.launches == k0
     assert dia_spmv_chain.launches == c0
+    assert dia_spmm_kernel.launches == m0
     assert _build.load_library.cache_info().currsize == 0
 
 
@@ -263,6 +267,69 @@ def test_dia_spmv_kernel_refuses_other_devices():
                     offsets=(-4, 0, 4))
     for call in (lambda: dia_spmv_kernel(short, torch.ones(16)),
                  lambda: dia_spmv_chain(short, torch.ones(16), 2)):
+        with pytest.raises(ValueError, match="does not match 3 offsets"):
+            call()
+
+
+# ------------------- kernel A's multi-RHS form against the JAX XLA forms
+
+
+def _spmm_operator(which, rng):
+    if which == "square":
+        j = jgrids.poisson_2d(9, dtype=np.float64, fmt="dia")
+    elif which == "wide":
+        j = _wide_dia(rng, n=1024)
+        j = jst.DIA(data=j.data.astype(np.float64), shape=j.shape,
+                    offsets=j.offsets)
+    else:
+        nr, nc = (70, 40) if which == "tall" else (40, 70)
+        j = _rect_dia(rng, nr, nc, np.float64)
+    return j
+
+
+@pytest.mark.parametrize("m", [1, 3, 40])
+@pytest.mark.parametrize("which", ["square", "wide", "tall", "flat"])
+def test_dia_spmm_kernels_vs_jax(which, m):
+    """dia_spmm_kernel / dia_spmm_planes_kernel (their plain version on CPU
+    tensors) against the JAX package's dia_spmm / dia_spmm_planes: the same
+    per-diagonal sums, within 1e-15 relative in f64."""
+    rng = np.random.default_rng(31)
+    j = _spmm_operator(which, rng)
+    t = to_port(j)
+    nr, nc = j.shape
+    x = rng.standard_normal((nc, m))
+    got = dia_spmm_kernel(t, torch.as_tensor(x))
+    want = np_of(jspmv.dia_spmm(j, jnp.asarray(x)))
+    assert got.shape == want.shape == (nr, m)
+    assert np.abs(np_of(got) - want).max() <= 1e-15 * np.abs(want).max()
+    got_p = dia_spmm_planes_kernel(t, torch.as_tensor(x.T.copy()))
+    want_p = np_of(jspmv.dia_spmm_planes(j, jnp.asarray(x.T)))
+    assert got_p.shape == want_p.shape == (m, nr)
+    assert np.abs(np_of(got_p) - want_p).max() <= 1e-15 * np.abs(
+        want_p).max()
+
+
+def test_dia_spmm_kernel_wrapper_checks():
+    t = tgrids.poisson_2d(4, dtype=torch.float64, fmt="dia", device="cpu")
+    x = torch.as_tensor(np.random.default_rng(32).standard_normal((16, 2)))
+    # a 1-D x is the SpMV; complex X takes the plain version on the CPU
+    np.testing.assert_array_equal(np_of(dia_spmm_kernel(t, x[:, 0])),
+                                  np_of(dia_spmv_kernel(t, x[:, 0])))
+    xc = x + 1j * x.flip(0)
+    np.testing.assert_allclose(np_of(dia_spmm_kernel(t, xc)),
+                               np_of(t.todense()) @ np_of(xc), atol=1e-13)
+    np.testing.assert_allclose(np_of(dia_spmm_planes_kernel(t, xc.T)),
+                               (np_of(t.todense()) @ np_of(xc)).T, atol=1e-13)
+    with pytest.raises(ValueError, match="dimension mismatch"):
+        dia_spmm_kernel(t, torch.ones((15, 2), dtype=torch.float64))
+    with pytest.raises(ValueError, match="planes"):
+        dia_spmm_planes_kernel(t, torch.ones((2, 15), dtype=torch.float64))
+    with pytest.raises(ValueError, match="different devices"):
+        dia_spmm_kernel(t.to("meta"), x)
+    short = tst.DIA(data=torch.ones((2, 16)), shape=(16, 16),
+                    offsets=(-4, 0, 4))
+    for call in (lambda: dia_spmm_kernel(short, torch.ones((16, 2))),
+                 lambda: dia_spmm_planes_kernel(short, torch.ones((2, 16)))):
         with pytest.raises(ValueError, match="does not match 3 offsets"):
             call()
 

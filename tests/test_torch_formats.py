@@ -270,16 +270,95 @@ def test_spmv_spmm_axpy_scale(fmt, dtype):
 
 
 def test_sparse_products_not_ported_yet():
-    """``@`` and ``*`` between sparse matrices are SpGEMM, as in the JAX
-    package; the elementwise union (``+``/``-``) is not ported yet."""
+    """``@`` and ``*`` between sparse matrices are SpGEMM and ``+``/``-``
+    the union merge, as in the JAX package (the name is kept from when the
+    union merge was not ported)."""
     t = st.eye(3, device="cpu")
     j = sl.eye(3, dtype=np.float32)
-    for op in (lambda a: a @ a, lambda a: a * a):
-        np.testing.assert_array_equal(np_of(op(t).todense()),
-                                      np_of(op(j).todense()))
-    for op in (lambda: t + t, lambda: t - t):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            op()
+    for op in (lambda a: a @ a, lambda a: a * a, lambda a: a + a,
+               lambda a: a - a, lambda a: a + 2.0 * a - a):
+        assert_same_leaves(op(t), op(j), atol=0)
+
+
+def _union_pair(dtype, seed):
+    """Two random matrices whose patterns overlap in part, with one shared
+    entry that cancels to zero in A + B and in A - (-B)."""
+    rng = np.random.default_rng(seed)
+    ra, ca, va = random_coo(rng, 7, 6, dtype)
+    rb, cb, vb = random_coo(rng, 7, 6, dtype)
+    rb = np.concatenate([rb, ra[:1]])
+    cb = np.concatenate([cb, ca[:1]])
+    vb = np.concatenate([vb, -va[:1]]).astype(dtype)
+    return ((ra, ca, va), (rb, cb, vb))
+
+
+@pytest.mark.parametrize("fmt", ["coo", "csr", "csc"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "c128", "f32"])
+def test_lin_add_sub_match_jax(dtype, fmt):
+    from sparse_linear_tpu.ops import linalg as jlinalg
+    from sparse_linear_tpu_torch.ops import linalg as tlinalg
+
+    (ra, ca, va), (rb, cb, vb) = _union_pair(dtype, 17)
+    ja, ta = _both_from_triples((7, 6), ra, ca, va)
+    jb, tb = _both_from_triples((7, 6), rb, cb, vb)
+    ja, jb = (getattr(m, f"to{fmt}")() for m in (ja, jb))
+    ta, tb = (getattr(m, f"to{fmt}")() for m in (ta, tb))
+    atol = _atol(dtype)
+    alpha = 0.5 - 2j if np.dtype(dtype).kind == "c" else -1.5
+    pairs = [(tlinalg.lin(alpha, ta, 2.0, tb), jlinalg.lin(alpha, ja, 2.0, jb)),
+             (tlinalg.add(ta, tb), jlinalg.add(ja, jb)),
+             (ta + tb, ja + jb), (ta - tb, ja - jb),
+             (tlinalg.lin(1, tb, 0, ta), jlinalg.lin(1, jb, 0, ja))]
+    for got, want in pairs:
+        assert got.dtype == tdt.as_torch_dtype(want.dtype)
+        assert_same_leaves(got, jax_trimmed(want), atol=atol)
+        assert st.check_matrix(got)
+    # the shared entry that cancels stays in the union pattern, as zero
+    s = tlinalg.add(ta, tb).tocsr()
+    r0, c0 = int(ra[0]), int(ca[0])
+    row = np_of(s.indices[int(s.indptr[r0]):int(s.indptr[r0 + 1])])
+    k = int(s.indptr[r0]) + int(np.nonzero(row == c0)[0][0])
+    assert abs(complex(np_of(s.data)[k])) <= atol
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tlinalg.add(ta, st.eye(7, device="cpu"))
+
+
+def jax_trimmed(m):
+    from sparse_linear_tpu.ops.build import trim
+
+    return trim(m)
+
+
+@pytest.mark.parametrize("case", ["real_sym", "real_nonsym", "herm",
+                                  "complex_sym", "rect", "near"])
+def test_is_hermitian_matches_jax(case):
+    rng = np.random.default_rng(18)
+    n = 6
+    if case == "rect":
+        d = rng.standard_normal((4, 5))
+    else:
+        d = rng.standard_normal((n, n)) * (rng.random((n, n)) < 0.5)
+        if case in ("herm", "complex_sym"):
+            d = d + 1j * rng.standard_normal((n, n)) * (d != 0)
+        if case in ("real_sym", "near"):
+            d = d + d.T
+        elif case == "herm":
+            d = d + d.conj().T
+        elif case == "complex_sym":
+            d = d + d.T
+    jm = sl.from_dense(jnp.asarray(d))
+    tm = st.from_dense(torch.as_tensor(d))
+    if case == "near":
+        # one value off by 1e-13: equal within tol 1e-12, not exactly
+        tm = tm.map_values(lambda v: v + 1e-13 * (torch.arange(
+            v.shape[0]) == 0))
+        jm = to_jax(tm)
+    for tol in (0.0, 1e-12):
+        assert tm.is_hermitian(tol) == bool(jm.is_hermitian(tol))
+    expect = {"real_sym": True, "real_nonsym": False, "herm": True,
+              "complex_sym": False, "rect": False, "near": False}[case]
+    assert tm.is_hermitian() is expect
+    assert tm.tocsc().is_hermitian() is expect
 
 
 def test_to_device_and_dtypes():
