@@ -19,10 +19,12 @@ NVIDIA GPU:
    SpMV and SpMM kernels and the 7-step f64 chain, <= 1e-4 for 50 chained
    f32 steps; the f64 WELL SpMV also meets ||y - y_csr|| / ||y_csr|| <=
    1e-13 against the plain CSR SpMV at 1448**2.  Kernel A's multi-RHS form
-   (``dia_spmm_kernel``, ``dia_spmm_planes_kernel``) at m = 1, 5, 16, 33,
-   80, 96 in both layouts and types on 2048**2, 1448**2, 216**3 and the
-   3M x 2M DIA (1e-5 / 1e-12), and at m = 16 and 80 every column bitwise
-   kernel A on that column, with a digest of each result.
+   (``dia_spmm_kernel``, ``dia_spmm_planes_kernel``) at m = 1, 2, 5, 8,
+   16, 33, 80, 96, 160 in both layouts and types on 2048**2, 1448**2,
+   216**3 and the 3M x 2M DIA (1e-5 / 1e-12), at m = 16, 80 and 160 every
+   column bitwise kernel A on that column, with a digest of each result;
+   at m = 1100 on 512**2 (both types), the 3M x 2M DIA at m = 768 in f32
+   (nr * m past 2**31), and an X that is not 16-byte aligned.
 4. Main path at full size, with the kernels' launch counts set to 0 before
    and read after: 2048**2 Poisson triples on the card -> from_triples ->
    tocsr -> check_matrix -> csr_to_dia; the top of the spectrum by power
@@ -42,10 +44,12 @@ NVIDIA GPU:
    floor of a numbering without reuse), and at m = 1, 5, 8 and 96 in both
    layouts; and kernel D under the geometry ``_spmm_plan`` picks against
    another on the same X (the scalar lanes against the widest, plane-major
-   m = 80 at two chunks a lane against one pass), bitwise equal.  Kernel
-   A's multi-RHS form at FEAST's m = 80 and at m = 16 on 1024**2 and
-   2048**2, both types and layouts, beside its plain version, its bytes
-   bound (the diagonals, X and Y once) and cuSPARSE SpMM.
+   m = 80 at two chunks a lane against one pass), bitwise equal; kernel
+   C's gather floor (x read once a slot), printed.  Kernel A's
+   multi-RHS form at FEAST's m = 80 and at m = 16 on 1024**2 and 2048**2,
+   and at m = 160 on 1024**2, both types and layouts, beside its plain
+   version, its bytes bound (the diagonals, X and Y once), cuSPARSE SpMM
+   and the previous design's times (``PREVIOUS_MS``).
 6. Slice-2 main path at full size, with the WELL kernels' launch counts set
    to 0 before and read after: the 2048**2 triples with their unknowns
    relabelled by a seeded permutation (an unstructured numbering) ->
@@ -123,13 +127,25 @@ PALLAS_WELL64 = "sparse_linear_tpu/kernels/spmv_well64.py"
 
 # bound_ms: H100 SXM peaks from NVIDIA's data sheet, at the full 700 W
 HBM_BYTES_PER_S = 3.35e12
-# times of the previous designs of the two kernels redesigned since
+# times of the previous designs of the kernels redesigned since
 # (PERF.md §6: measured by this script before the redesign, on an NVIDIA
 # H100 80GB HBM3 at 700.00 W), printed beside this run's
 PREVIOUS_MS = {"well_spmv torch.float32": 0.1704, "well_spmv torch.float64": 0.3070,
                "dia_spmv_chain torch.float32": 2.6613,
                "well_spmm torch.float32": 1.1720,
-               "well_spmm torch.float64": 2.0543}
+               "well_spmm torch.float64": 2.0543,
+               # kernel A's multi-RHS form, the first design: (column-major,
+               # plane-major); m = 160 from this script run on its tree
+               "dia_spmm poisson_2d(1024) m=80 torch.float32": (0.9435, 0.6798),
+               "dia_spmm poisson_2d(1024) m=80 torch.float64": (1.1111, 0.7582),
+               "dia_spmm poisson_2d(1024) m=16 torch.float32": (0.1991, 0.1431),
+               "dia_spmm poisson_2d(1024) m=16 torch.float64": (0.2200, 0.1619),
+               "dia_spmm poisson_2d(1024) m=160 torch.float32": (1.9250, 1.3620),
+               "dia_spmm poisson_2d(1024) m=160 torch.float64": (2.3628, 1.5723),
+               "dia_spmm poisson_2d(2048) m=80 torch.float32": (3.9796, 2.8949),
+               "dia_spmm poisson_2d(2048) m=80 torch.float64": (4.6425, 3.2248),
+               "dia_spmm poisson_2d(2048) m=16 torch.float32": (0.7845, 0.5865),
+               "dia_spmm poisson_2d(2048) m=16 torch.float64": (0.8639, 0.6349)}
 
 
 def require(cond, msg):
@@ -409,8 +425,10 @@ def spectrum_2d(g):
 
 def dia_spmm_parity(dev, gen, random_dia, parity_abs) -> None:
     """Phase 3, kernel A's multi-RHS form: both layouts against the plain
-    versions at m = 1, 5, 16, 33, 80, 96, and at m = 16 and 80 on the 2D
-    operators every column bitwise kernel A on it, with a digest."""
+    versions at m = 1, 2, 5, 8, 16, 33, 80, 96, 160; at m = 16, 80 and 160
+    on the 2D operators every column bitwise kernel A on it, with a digest;
+    m = 1100 on poisson_2d(512); the 3M x 2M DIA at m = 768 in f32 (nr * m
+    past 2**31); and an X that is not 16-byte aligned."""
     import torch
 
     from sparse_linear_tpu_torch.kernels.spmv import dia_spmm, dia_spmm_planes
@@ -422,6 +440,49 @@ def dia_spmm_parity(dev, gen, random_dia, parity_abs) -> None:
     from sparse_linear_tpu_torch.utils.grids import poisson_2d, poisson_3d
 
     tol = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+    def slabbed_err(y, x, a, planes, width=32):
+        """(max abs err, max rel err) of y against the plain version,
+        taken ``width`` right-hand sides at a time (the plain version pads
+        all of X along the offsets and writes a Y of its own: at m = 160
+        on 216**3 in f64 that is 26 GB beside the kernels' 52 GB)."""
+        err = top = 0.0
+        m = x.shape[0] if planes else x.shape[1]
+        for t in range(0, m, width):
+            if planes:
+                ref = dia_spmm_planes(a, x[t:t + width])
+                got = y[t:t + width]
+            else:
+                ref = dia_spmm(a, x[:, t:t + width])
+                got = y[:, t:t + width]
+            err = max(err, float((got - ref).abs().max()))
+            top = max(top, float(ref.abs().max()))
+            del ref, got
+        return err, err / max(top, 1e-300)
+
+    def check_large(label, a, m):
+        """Both layouts at a large m, one at a time (X, Y and a slab of
+        the plain version held at once)."""
+        dtype = a.data.dtype
+        x = torch.randn((a.shape[1], m), dtype=dtype, device=dev,
+                        generator=gen)
+        y = dia_spmm_kernel(a, x)
+        err, rel = slabbed_err(y, x, a, False)
+        del y
+        xp = x.T.contiguous()
+        del x
+        yp = dia_spmm_planes_kernel(a, xp)
+        errp, relp = slabbed_err(yp, xp, a, True)
+        torch.cuda.synchronize()
+        del xp, yp
+        torch.cuda.empty_cache()
+        print(f"phase 3 parity dia_spmm {label} {dtype} m={m} (nr * m = "
+              f"{a.shape[0] * m}): max rel err column-major {rel:.3e}, "
+              f"plane-major {relp:.3e} (max abs {max(err, errp):.3e}, tol "
+              f"{tol[dtype]:.0e})", flush=True)
+        require(rel <= tol[dtype] and relp <= tol[dtype],
+                f"dia_spmm {label} {dtype} m={m} disagrees: {rel}, {relp}")
+        parity_abs[f"dia_spmm {label} {dtype} m={m}"] = max(err, errp)
     ops = [("poisson_2d(2048)", lambda dt: poisson_2d(
                2048, dtype=dt, fmt="dia", device=dev)),
            ("poisson_2d(1448)", lambda dt: poisson_2d(
@@ -435,14 +496,14 @@ def dia_spmm_parity(dev, gen, random_dia, parity_abs) -> None:
         for label, make in ops:
             a = make(dtype)
             nc = a.shape[1]
-            for m in (1, 5, 16, 33, 80, 96):
+            for m in (1, 2, 5, 8, 16, 33, 80, 96, 160):
                 x = torch.randn((nc, m), dtype=dtype, device=dev,
                                 generator=gen)
                 y = dia_spmm_kernel(a, x)
-                err, rel = max_err(y, dia_spmm(a, x))
+                err, rel = slabbed_err(y, x, a, False)
                 xp = x.T.contiguous()
                 yp = dia_spmm_planes_kernel(a, xp)
-                errp, relp = max_err(yp, dia_spmm_planes(a, xp))
+                errp, relp = slabbed_err(yp, xp, a, True)
                 torch.cuda.synchronize()
                 print(f"phase 3 parity dia_spmm {label} {dtype} m={m}: max rel "
                       f"err column-major {rel:.3e}, plane-major {relp:.3e} "
@@ -452,7 +513,7 @@ def dia_spmm_parity(dev, gen, random_dia, parity_abs) -> None:
                         f"dia_spmm {label} {dtype} m={m} disagrees: {rel}, "
                         f"{relp}")
                 parity_abs[f"dia_spmm {label} {dtype} m={m}"] = max(err, errp)
-                if m in (16, 80) and label.startswith("poisson_2d"):
+                if m in (16, 80, 160) and label.startswith("poisson_2d"):
                     same = all(
                         torch.equal(y[:, t], col) and torch.equal(yp[t], col)
                         for t in range(m)
@@ -468,6 +529,42 @@ def dia_spmm_parity(dev, gen, random_dia, parity_abs) -> None:
                 del x, y, xp, yp
             del a
             torch.cuda.empty_cache()
+        # m past the four chunks a lane holds, tiled 9 (f32) / 18 (f64)
+        # times; X and Y 2.3 GB each in f64
+        check_large("poisson_2d(512)", poisson_2d(512, dtype=dtype,
+                                                   fmt="dia", device=dev),
+                    1100)
+    # nr * m = 2.3e9 > 2**31: every flat index into Y must be 64-bit
+    check_large("rectangular 3000000x2000000", random_dia(
+        (3_000_000, 2_000_000), (-1_000_000, -5, 0, 3, 1_500_000),
+        torch.float32, gen), 768)
+
+    # an X that starts one element past a 16-byte boundary (a contiguous
+    # view at storage offset 1, NaN around it) takes the scalar lanes:
+    # bitwise the aligned call, and nothing outside the view is read
+    a = poisson_2d(1448, dtype=torch.float64, fmt="dia", device=dev)
+    n = a.shape[1]
+    for m in (16, 80):
+        x = torch.randn((n, m), dtype=torch.float64, device=dev,
+                        generator=gen)
+        flat = torch.full((n * m + 8,), float("nan"), dtype=torch.float64,
+                          device=dev)
+        xm = flat[1:1 + n * m].view(n, m)
+        xm.copy_(x)
+        y = dia_spmm_kernel(a, xm)
+        same = torch.equal(y, dia_spmm_kernel(a, x))
+        err, rel = max_err(y, dia_spmm(a, x))
+        torch.cuda.synchronize()
+        print(f"phase 3 parity dia_spmm poisson_2d(1448) float64 m={m} X at "
+              f"data_ptr % 16 = {xm.data_ptr() % 16}: finite "
+              f"{bool(torch.isfinite(y).all())}, bitwise the aligned call "
+              f"{same}, max rel err {rel:.3e} (tol 1e-12)", flush=True)
+        require(same and rel <= 1e-12 and bool(torch.isfinite(y).all()),
+                f"dia_spmm misaligned X m={m}")
+        parity_abs[f"dia_spmm misaligned float64 m={m}"] = err
+        del x, flat, xm, y
+    del a
+    torch.cuda.empty_cache()
 
 
 def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64)) -> list:
@@ -1197,9 +1294,11 @@ def main() -> None:
     def median_ms(f):
         return statistics.median(samples_ms(f) + samples_ms(f))
 
-    # kernel A's multi-RHS form at FEAST's m = 80 and at m = 16, both
-    # layouts; bytes: the diagonals, X and Y once.  The 1024**2 f64 m = 80
-    # column-major reading is FEAST's shape and goes to the JSON line.
+    # kernel A's multi-RHS form at FEAST's m = 80, at m = 16 and, at
+    # 1024**2, at m = 160 (FEAST's complex refinement residual as a real
+    # block), both layouts; bytes: the diagonals, X and Y once.  The
+    # 1024**2 f64 m = 80 column-major reading is FEAST's shape and goes to
+    # the JSON line.
     dia_spmm_readings = []
     for g_s in (1024, 2048):
         for dtype in (f32, f64):
@@ -1210,7 +1309,7 @@ def main() -> None:
             del csr
             n_s = g_s * g_s
             item = a.data.element_size()
-            for m in (80, 16):
+            for m in (80, 16, 160) if g_s == 1024 else (80, 16):
                 x = randn(n_s * m, dtype, fgen).reshape(n_s, m)
                 xp = x.T.contiguous()
                 nbytes = (len(a.offsets) * n_s + 2 * n_s * m) * item
@@ -1221,11 +1320,15 @@ def main() -> None:
                     lambda: dia_spmm_planes(a, xp),
                     lambda: dia_spmm_planes_kernel(a, xp))
                 b_ms, b_by = bound(nbytes, 2 * nnz * m, dtype)
+                case = f"poisson_2d({g_s}) m={m} {dtype}"
                 dia_spmm_readings.append({
-                    "case": f"poisson_2d({g_s}) m={m} {dtype}", "ms": k_ms,
+                    "case": case, "ms": k_ms,
                     "plain_ms": p_ms, "planes_ms": kp_ms,
                     "planes_plain_ms": pp_ms, "library_ms": l_ms,
                     "bound_ms": b_ms, "bound_by": b_by})
+                prev = PREVIOUS_MS.get(f"dia_spmm {case}")
+                prev = "not measured" if prev is None else \
+                    f"column-major {prev[0]:.4f} ms, plane-major {prev[1]:.4f} ms"
                 print(f"phase 5 time [{card}] dia_spmm poisson_2d({g_s}) "
                       f"{dtype} m={m}: column-major {k_ms:.4f} ms "
                       f"({nbytes / k_ms / 1e6:.1f} GB/s, plain {p_ms:.4f}), "
@@ -1233,7 +1336,8 @@ def main() -> None:
                       f"{b_ms:.4f} ms by {b_by} ({b_ms / k_ms:.1%} of it "
                       f"reached column-major, {b_ms / kp_ms:.1%} plane-major),"
                       f" library (cuSPARSE SpMM, X (n, {m}) row-major) "
-                      f"{l_ms:.4f} ms", flush=True)
+                      f"{l_ms:.4f} ms; previous design (PERF.md): {prev}",
+                      flush=True)
                 if (g_s, m) == (1024, 80):
                     record("dia_spmm", dtype, k_ms, p_ms, l_ms, nbytes,
                            2 * nnz * m, f"torch.sparse_csr_tensor @ X "
@@ -1358,9 +1462,15 @@ def main() -> None:
                                     lambda: lib_c @ x)
         record("well_spmv", dtype, k_ms, p_ms, l_ms, nbytes, 2 * nnz,
                "torch.sparse_csr_tensor @ x (cuSPARSE SpMV), permuted")
+        # kernel D's gather floor at m = 1: x read once a slot (a numbering
+        # without reuse), computed, not measured
+        floor_ms = (a_bytes + w.cols.shape[0] * item + n * item) \
+            / HBM_BYTES_PER_S * 1e3
         print(f"phase 5 well_spmv {dtype}: {nbytes / 1e6:.1f} MB per call "
               f"(slots {a_bytes / 1e6:.1f} MB, nnz * (itemsize + 4) "
-              f"{nnz * (item + 4) / 1e6:.1f} MB)", flush=True)
+              f"{nnz * (item + 4) / 1e6:.1f} MB); gather floor (x once a "
+              f"slot) {floor_ms:.4f} ms, {floor_ms / k_ms:.1%} of it reached",
+              flush=True)
         del x
         xp = randn(m_rhs * n, dtype, wgen).reshape(m_rhs, n)
         time_spmm("well_spmm", "permuted", w, lib_c, nnz, xp)

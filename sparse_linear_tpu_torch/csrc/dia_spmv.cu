@@ -43,24 +43,54 @@
 // plane-major ((m, nc) and (m, nr)).  It replaces the XLA forms that the
 // JAX package's FEAST runs on a banded operator, sparse_linear_tpu/kernels/
 // spmv.py:45-90 (dia_spmm, dia_spmm_planes), called through eig/
-// real_pipeline.py:124-132 (_structured_op).  What should bound it is
-// memory: an entry of Y takes 2 flops a diagonal against at least
-// 2 * itemsize bytes of X and Y (1.38 GB at 1024^2, 5 diagonals, m = 80 in
-// f64: 0.41 ms at 3.35 TB/s).  Measured (NVIDIA H100 80GB HBM3 at 700.00 W,
-// chip_smoke.py phase 5, 1024^2, m = 80) it is bound by its instructions:
-// column-major 1.11 ms f64 and 0.94 ms f32 (37 % and 22 % of the bound:
-// a 32-bit division and 64-bit index arithmetic per entry and diagonal),
-// plane-major 0.76 / 0.68 ms.  The design is the simple one that is right
-// (a row-per-warp form without the division is later work).  Column-major:
-// a block takes a few consecutive rows and its threads walk their (rows, m)
-// entries in storage order, so a warp's loads of X (at e + off_d * m) and
-// its stores of Y are coalesced whatever m, and data[d, i] is one broadcast
-// load for the threads of a row; the +-g offsets re-read rows of X that a
-// block g rows away read, which L2 serves.  Plane-major: one thread takes a
-// row and loops over the m planes, coalesced along i.  Each entry sums its
-// diagonals in stored order from zero with one fma each, as kernel A's
-// dia_row does, so every column of the result is bitwise kernel A on that
-// column.  wgmma, TMA and shared-memory X tiles are later work.
+// real_pipeline.py:124-132 (_structured_op).  What bounds it is memory: an
+// entry of Y takes 2 flops a diagonal against at least 2 * itemsize bytes
+// of X and Y (1.38 GB at 1024^2, 5 diagonals, m = 80 in f64: 0.41 ms at
+// 3.35 TB/s).  X is read once from device memory only if L2 serves the
+// re-reads: each row of X is wanted by ndiag rows of Y, the +-1 neighbours
+// from the same tile of rows and the +-g ones from tiles g rows away.
+//
+// The first design (one thread an entry of Y, a 32-bit division and 64-bit
+// index arithmetic per entry and diagonal, one scalar load pair in flight
+// per fma) ran at 22-37 % of that bound, slower than cuSPARSE in f32.  The
+// design here, against each cost:
+//  * A block owns a tile of R consecutive rows.  Per chunk of up to
+//    kDiagChunk diagonals it stages, once, the tile's data[d, row0:row0+R]
+//    in shared memory (read under __ldcs, evict-first, so that L2 keeps X)
+//    and, per diagonal, X's element index of the tile's first row and the
+//    range [lo, hi) of the tile's rows whose column i + off_d lies in
+//    [0, nc), as block-local ints: the per-row test is two int compares, and
+//    no integer division runs anywhere (R is a power of two).
+//  * Column-major: a group of G lanes takes one row of X as a coalesced run
+//    of 16-byte vectors (float4 / double2) where m * itemsize is a multiple
+//    of 16 and X and Y are 16-byte aligned, else one value a lane; a lane
+//    holds up to four chunks, and m is tiled past G * V * C.  A thread
+//    starts all its loads of one diagonal before their multiply-adds,
+//    accumulators in registers: two rows at one or two chunks a lane, one
+//    row at three or four.  Registers, not instructions, set the limit:
+//    two rows at five chunks took 124 registers (two blocks an SM) and ran
+//    0.715 ms at 1024^2, m = 80, f64, where one row at four took 0.553 ms.
+//    Y is written once, as the same vectors, under __stcs.
+//  * Plane-major: one thread a row (coalesced along i), TP planes at once:
+//    data[d, i] and the offset test are read once from the staged tile for
+//    the TP planes, whose loads are in flight together.  Four planes beat
+//    eight (62 registers in f64) and two at every shape the probe timed but
+//    one.
+// Measured (NVIDIA H100 80GB HBM3 at 700.00 W, L2 flushed, 1024^2, m = 80,
+// f32 / f64; tools/torch_dia_spmm_probe.py, this geometry): column-major
+// 0.294 / 0.553 ms (70 % / 75 % of the bytes bound), plane-major 0.432 /
+// 0.593 ms; the first design 0.944 / 1.111 and 0.680 / 0.758 ms and
+// cuSPARSE SpMM 0.628 / 1.291 ms (chip_smoke.py phase 5).  Plane-major f32
+// stays under half its bound: its X loads are 4-byte scalars along i,
+// misaligned by the odd offsets, so vectors do not apply.
+//  * Each entry sums its diagonals in stored order from zero with one fma
+//    each (chunks of diagonals continue the same accumulator), as kernel A's
+//    dia_row does, so every column of the result is bitwise kernel A on that
+//    column, whatever the geometry.
+//  * All flat indices into X and Y are 64-bit (nr * m passes 2^31 at 3M
+//    rows and m = 768).  The launcher asks the runtime for the SM count and
+//    occupancy once per (device, instantiation) and keeps them.
+// The geometry (V, G, C; TP) is the wrapper's: spmv_dia._dia_spmm_plan.
 //
 // What bounds them: memory.  Kernel A moves (ndiag + 2) * nr * itemsize
 // bytes (117 MB for f32 at 2048^2) for 2 * ndiag flops per row, far below
@@ -76,6 +106,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace cg = cooperative_groups;
@@ -85,7 +116,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kChainThreads = 1024;  // kernel B: one block per SM
 constexpr int kChainRows = 4;        // rows a thread of kernel B takes at once
-constexpr int kSpmmEntries = 1024;   // entries of Y a dia_spmm block takes
+constexpr int kSpmmThreads = 256;    // dia_spmm: threads a block
+// column-major: a thread takes two rows while a lane holds at most this
+// many chunks, one row past that (registers: see the note above)
+constexpr int kTwoRowChunks = 2;
+constexpr int kDiagChunk = 8;        // dia_spmm: diagonals staged at a time
+constexpr int kMaxDevices = 64;
 
 // a * b + c rounded once: the one fma of every term of kernel A and of its
 // multi-RHS form (written out, so that no two loops contract differently)
@@ -122,62 +158,237 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Column-major dia_spmm: a block takes rows_per_block rows at a time and
-// its threads walk their rows * m entries e in storage order (row e / m,
-// right-hand side e % m).  rows_per_block * m fits 32 bits (the launcher
-// keeps it near kSpmmEntries).
+// V consecutive values of a row of X or Y: one 16-byte access, or one
+// value.  X is read through the read-only path, Y written under __stcs.
+template <typename T, int V>
+struct Vec;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct Vec<T, 1> {
+  __device__ static void load(const T* p, T (&v)[1]) { v[0] = __ldg(p); }
+  __device__ static void store(T* p, const T (&v)[1]) { __stcs(p, v[0]); }
+};
+
+template <>
+struct Vec<float, 4> {
+  __device__ static void load(const float* p, float (&v)[4]) {
+    const float4 d = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = d.x;
+    v[1] = d.y;
+    v[2] = d.z;
+    v[3] = d.w;
+  }
+  __device__ static void store(float* p, const float (&v)[4]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+};
+
+template <>
+struct Vec<double, 2> {
+  __device__ static void load(const double* p, double (&v)[2]) {
+    const double2 d = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = d.x;
+    v[1] = d.y;
+  }
+  __device__ static void store(double* p, const double (&v)[2]) {
+    __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+  }
+};
+
+// One staged diagonal of a tile of rows [row0, row0 + rows): X's element
+// index of row row0 + off_d (times the row stride), and the tile's rows r
+// in [lo, hi) are those with 0 <= row0 + r + off_d < nc.
+struct __align__(16) DiagTile {
+  int64_t xbase;
+  int lo;
+  int hi;
+};
+
+// Stages diagonals d0 .. d0 + dn - 1 of the tile: each one's DiagTile in
+// meta[k] and data[d0 + k, row0 + r] in sd[k * R + r] for r < rows.  R is a
+// power of two (the split of e is a shift).  Both barriers are the block's:
+// the previous chunk has been read before it is overwritten, and this one
+// is written before it is read.
+template <typename T, int R>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ data,
+                                           const int64_t* __restrict__ offsets,
+                                           DiagTile* meta, T* sd, int64_t d0,
+                                           int dn, int64_t nr, int64_t nc,
+                                           int64_t stride, int64_t row0,
+                                           int rows) {
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < dn) {
+    const int64_t off = __ldg(offsets + d0 + threadIdx.x);
+    const int64_t lo = -off - row0;
+    const int64_t hi = nc - off - row0;
+    DiagTile t;
+    t.xbase = (row0 + off) * stride;
+    t.lo = static_cast<int>(lo < 0 ? 0 : (lo > rows ? rows : lo));
+    t.hi = static_cast<int>(hi < 0 ? 0 : (hi > rows ? rows : hi));
+    meta[threadIdx.x] = t;
+  }
+  for (int e = threadIdx.x; e < dn * R; e += blockDim.x) {
+    const int k = e / R;
+    const int r = e % R;
+    if (r < rows) sd[e] = __ldcs(data + (d0 + k) * nr + row0 + r);
+  }
+  __syncthreads();
+}
+
+// Rows a thread of the column-major dia_spmm takes at C chunks a lane.
+template <int C>
+__host__ __device__ constexpr int spmm_rows() {
+  return C <= kTwoRowChunks ? 2 : 1;
+}
+
+// Column-major dia_spmm: X (nc, m), Y (nr, m), both row-major.  A group of
+// G lanes takes a row, V values a lane (V > 1: one 16-byte vector; then
+// m % V == 0 and X and Y are 16-byte aligned), C chunks of G * V columns a
+// pass over m; a thread takes Q = spmm_rows<C>() rows, P rows apart.
+template <typename T, int V, int G, int C>
+__global__ void __launch_bounds__(kSpmmThreads)
     dia_spmm_kernel(const T* __restrict__ data,
                     const int64_t* __restrict__ offsets,
                     const T* __restrict__ x, T* __restrict__ y, int64_t ndiag,
-                    int64_t nr, int64_t nc, int64_t m,
-                    int64_t rows_per_block) {
-  const unsigned um = static_cast<unsigned>(m);
-  const int64_t step = static_cast<int64_t>(gridDim.x) * rows_per_block;
-  for (int64_t row0 = blockIdx.x * rows_per_block; row0 < nr; row0 += step) {
-    const int64_t rows =
-        nr - row0 < rows_per_block ? nr - row0 : rows_per_block;
-    const unsigned count = static_cast<unsigned>(rows) * um;
-    const T* xb = x + row0 * m;
-    T* yb = y + row0 * m;
-    for (unsigned e = threadIdx.x; e < count; e += blockDim.x) {
-      const int64_t i = row0 + e / um;
-      T acc = T(0);
-      for (int64_t d = 0; d < ndiag; ++d) {
-        const int64_t off = __ldg(offsets + d);
-        const int64_t j = i + off;
-        if (j >= 0 && j < nc) {
-          acc = fma_t(__ldg(data + d * nr + i),
-                      xb[static_cast<int64_t>(e) + off * m], acc);
+                    int64_t nr, int64_t nc, int64_t m) {
+  constexpr int Q = spmm_rows<C>();
+  constexpr int P = kSpmmThreads / G;  // rows a pass of the block
+  constexpr int R = P * Q;             // rows a tile
+  constexpr int W = G * V;             // columns a chunk
+  constexpr int kTile = C * W;         // columns a pass over m
+  __shared__ DiagTile meta[kDiagChunk];
+  __shared__ T sd[kDiagChunk * R];
+  const int h = threadIdx.x / G;
+  const int tv = (threadIdx.x % G) * V;
+  const bool restage = ndiag > kDiagChunk;
+  const int64_t tiles = (nr + R - 1) / R;
+  // this thread's rows' element offsets from a tile's first row
+  int64_t rm[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    rm[q] = static_cast<int64_t>(h + q * P) * m + tv;
+  }
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t row0 = tile * R;
+    const int rows = static_cast<int>(nr - row0 < R ? nr - row0 : R);
+    for (int64_t t0 = 0; t0 < m; t0 += kTile) {
+      const int nt = static_cast<int>(m - t0 < kTile ? m - t0 : kTile);
+      T acc[Q][C][V];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[q][c][v] = T(0);
         }
       }
-      yb[e] = acc;
+      for (int64_t d0 = 0; d0 < ndiag; d0 += kDiagChunk) {
+        const int dn = static_cast<int>(
+            ndiag - d0 < kDiagChunk ? ndiag - d0 : kDiagChunk);
+        if (t0 == 0 || restage) {
+          stage_tile<T, R>(data, offsets, meta, sd, d0, dn, nr, nc, m, row0,
+                           rows);
+        }
+        for (int k = 0; k < dn; ++k) {
+          const DiagTile g = meta[k];
+          const int64_t base = g.xbase + t0;
+          T a[Q];
+          bool ok[Q];
+          T xv[Q][C][V];
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            const int r = h + q * P;
+            ok[q] = r >= g.lo && r < g.hi;
+            a[q] = sd[k * R + r];
+            const T* xr = x + (base + rm[q]);
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              if (ok[q] && c * W + tv < nt) {
+                Vec<T, V>::load(xr + c * W, xv[q][c]);
+              }
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              if (ok[q] && c * W + tv < nt) {
+#pragma unroll
+                for (int v = 0; v < V; ++v) {
+                  acc[q][c][v] = fma_t(a[q], xv[q][c][v], acc[q][c][v]);
+                }
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        if (h + q * P < rows) {
+          T* yr = y + (row0 * m + t0 + rm[q]);
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            if (c * W + tv < nt) Vec<T, V>::store(yr + c * W, acc[q][c]);
+          }
+        }
+      }
     }
   }
 }
 
-// Plane-major dia_spmm: one thread a row i, looping over the m planes; X is
-// (m, nc), Y (m, nr).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// Plane-major dia_spmm: X (m, nc), Y (m, nr).  One thread a row of a tile
+// of kSpmmThreads rows, TP planes at a time.
+template <typename T, int TP>
+__global__ void __launch_bounds__(kSpmmThreads)
     dia_spmm_planes_kernel(const T* __restrict__ data,
                            const int64_t* __restrict__ offsets,
                            const T* __restrict__ x, T* __restrict__ y,
                            int64_t ndiag, int64_t nr, int64_t nc, int64_t m) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < nr; i += stride) {
-    for (int64_t t = 0; t < m; ++t) {
-      const T* xt = x + t * nc;
-      T acc = T(0);
-      for (int64_t d = 0; d < ndiag; ++d) {
-        const int64_t j = i + __ldg(offsets + d);
-        if (j >= 0 && j < nc) {
-          acc = fma_t(__ldg(data + d * nr + i), xt[j], acc);
+  constexpr int R = kSpmmThreads;
+  __shared__ DiagTile meta[kDiagChunk];
+  __shared__ T sd[kDiagChunk * R];
+  const int r = threadIdx.x;
+  const bool restage = ndiag > kDiagChunk;
+  const int64_t tiles = (nr + R - 1) / R;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t row0 = tile * R;
+    const int rows = static_cast<int>(nr - row0 < R ? nr - row0 : R);
+    for (int64_t t0 = 0; t0 < m; t0 += TP) {
+      const int np = static_cast<int>(m - t0 < TP ? m - t0 : TP);
+      const T* xt = x + t0 * nc;
+      T acc[TP];
+#pragma unroll
+      for (int p = 0; p < TP; ++p) acc[p] = T(0);
+      for (int64_t d0 = 0; d0 < ndiag; d0 += kDiagChunk) {
+        const int dn = static_cast<int>(
+            ndiag - d0 < kDiagChunk ? ndiag - d0 : kDiagChunk);
+        if (t0 == 0 || restage) {
+          stage_tile<T, R>(data, offsets, meta, sd, d0, dn, nr, nc, 1, row0,
+                           rows);
+        }
+        for (int k = 0; k < dn; ++k) {
+          const DiagTile g = meta[k];
+          const bool ok = r >= g.lo && r < g.hi;
+          const T a = sd[k * R + r];
+          const T* xr = xt + (g.xbase + r);
+          T xv[TP];
+#pragma unroll
+          for (int p = 0; p < TP; ++p) {
+            if (ok && p < np) xv[p] = __ldg(xr + p * nc);
+          }
+#pragma unroll
+          for (int p = 0; p < TP; ++p) {
+            if (ok && p < np) acc[p] = fma_t(a, xv[p], acc[p]);
+          }
         }
       }
-      y[t * nr + i] = acc;
+      if (r < rows) {
+        T* yr = y + (t0 * nr + row0 + r);
+#pragma unroll
+        for (int p = 0; p < TP; ++p) {
+          if (p < np) __stcs(yr + p * nr, acc[p]);
+        }
+      }
     }
   }
 }
@@ -277,33 +488,116 @@ int launch_spmv(const void* data, const void* offsets, const void* x, void* y,
 }
 
 template <typename T>
-int launch_spmm(const void* data, const void* offsets, const void* x, void* y,
-                long long ndiag, long long nr, long long nc, long long m,
-                int planes, int device, void* stream) {
+using SpmmKernel = void (*)(const T*, const int64_t*, const T*, T*, int64_t,
+                            int64_t, int64_t, int64_t);
+
+// A dia_spmm instantiation as a persistent grid: as many blocks as fit on
+// the card at once (fewer for a small matrix), each walking tiles of `rows`
+// rows grid-stride.  The runtime is asked for that count once per (device,
+// instantiation), on the first launch, and `kept` holds it for the later
+// ones; two threads racing on a first launch ask twice and keep the same
+// count.
+template <typename T>
+int launch_tiles(SpmmKernel<T> kernel, std::atomic<long long>* kept,
+                 long long rows, const void* data, const void* offsets,
+                 const void* x, void* y, long long ndiag, long long nr,
+                 long long nc, long long m, int device, void* stream) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  int sms = 0;
-  err = sm_count(device, &sms);
-  if (err != cudaSuccess) return err;
-  const long long cap = static_cast<long long>(sms) * 16;
-  const T* data_p = static_cast<const T*>(data);
-  const int64_t* offsets_p = static_cast<const int64_t*>(offsets);
-  const T* x_p = static_cast<const T*>(x);
-  T* y_p = static_cast<T*>(y);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (planes) {
-    const long long want = (nr + kThreads - 1) / kThreads;
-    const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
-    dia_spmm_planes_kernel<T><<<blocks, kThreads, 0, s>>>(
-        data_p, offsets_p, x_p, y_p, ndiag, nr, nc, m);
-  } else {
-    const long long rows = m < kSpmmEntries ? kSpmmEntries / m : 1;
-    const long long want = (nr + rows - 1) / rows;
-    const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
-    dia_spmm_kernel<T><<<blocks, kThreads, 0, s>>>(
-        data_p, offsets_p, x_p, y_p, ndiag, nr, nc, m, rows);
+  long long cap = kept[device].load(std::memory_order_relaxed);
+  if (cap <= 0) {
+    int sms = 0;
+    int per_sm = 0;
+    err = sm_count(device, &sms);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kSpmmThreads, 0);
+    if (err != cudaSuccess) return err;
+    if (per_sm <= 0) return cudaErrorLaunchOutOfResources;
+    cap = static_cast<long long>(sms) * per_sm;
+    kept[device].store(cap, std::memory_order_relaxed);
   }
+  const long long want = (nr + rows - 1) / rows;
+  const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
+  kernel<<<blocks, kSpmmThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const int64_t*>(offsets),
+      static_cast<const T*>(x), static_cast<T*>(y), ndiag, nr, nc, m);
   return cudaGetLastError();
+}
+
+template <typename T, int V, int G, int C>
+int launch_spmm_as(const void* data, const void* offsets, const void* x,
+                   void* y, long long ndiag, long long nr, long long nc,
+                   long long m, int device, void* stream) {
+  static std::atomic<long long> kept[kMaxDevices];  // 0s
+  return launch_tiles<T>(dia_spmm_kernel<T, V, G, C>, kept,
+                         spmm_rows<C>() * (kSpmmThreads / G), data, offsets,
+                         x, y,
+                         ndiag, nr, nc, m, device, stream);
+}
+
+template <typename T, int TP>
+int launch_planes_as(const void* data, const void* offsets, const void* x,
+                     void* y, long long ndiag, long long nr, long long nc,
+                     long long m, int device, void* stream) {
+  static std::atomic<long long> kept[kMaxDevices];  // 0s
+  return launch_tiles<T>(dia_spmm_planes_kernel<T, TP>, kept, kSpmmThreads,
+                         data, offsets, x, y, ndiag, nr, nc, m, device,
+                         stream);
+}
+
+// The wrapper chooses the geometry (spmv_dia._dia_spmm_plan).  Column-major:
+// vector lanes take G in {1, 2, 4, 8} with one chunk or G = 8 with two to
+// four; scalar lanes one chunk of G in {1, ..., 128 / itemsize}.
+// Plane-major: lanes 1, TP = chunks in {1, 2, 4} planes at a time.
+template <typename T>
+int launch_spmm(const void* data, const void* offsets, const void* x, void* y,
+                long long ndiag, long long nr, long long nc, long long m,
+                int planes, int vec, int lanes, int chunks, int device,
+                void* stream) {
+  constexpr int VX = 16 / sizeof(T);
+#define SLT_SPMM(V, G, C)                                                  \
+  return launch_spmm_as<T, V, G, C>(data, offsets, x, y, ndiag, nr, nc, m, \
+                                    device, stream)
+#define SLT_PLANES(TP)                                                    \
+  return launch_planes_as<T, TP>(data, offsets, x, y, ndiag, nr, nc, m,  \
+                                 device, stream)
+  if (planes) {
+    if (lanes == 1) {
+      switch (chunks) {
+        case 1: SLT_PLANES(1);
+        case 2: SLT_PLANES(2);
+        case 4: SLT_PLANES(4);
+      }
+    }
+  } else if (vec && chunks == 1) {
+    switch (lanes) {
+      case 1: SLT_SPMM(VX, 1, 1);
+      case 2: SLT_SPMM(VX, 2, 1);
+      case 4: SLT_SPMM(VX, 4, 1);
+      case 8: SLT_SPMM(VX, 8, 1);
+    }
+  } else if (vec && lanes == 8) {
+    switch (chunks) {
+      case 2: SLT_SPMM(VX, 8, 2);
+      case 3: SLT_SPMM(VX, 8, 3);
+      case 4: SLT_SPMM(VX, 8, 4);
+    }
+  } else if (!vec && chunks == 1) {
+    switch (lanes) {
+      case 1: SLT_SPMM(1, 1, 1);
+      case 2: SLT_SPMM(1, 2, 1);
+      case 4: SLT_SPMM(1, 4, 1);
+      case 8: SLT_SPMM(1, 8, 1);
+      case 16: SLT_SPMM(1, 16, 1);
+      case 32:
+        if constexpr (sizeof(T) == 4) SLT_SPMM(1, 32, 1);
+    }
+  }
+#undef SLT_SPMM
+#undef SLT_PLANES
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -388,16 +682,18 @@ int slt_dia_spmv_f64(const void* data, const void* offsets, const void* x,
 
 int slt_dia_spmm_f32(const void* data, const void* offsets, const void* x,
                      void* y, long long ndiag, long long nr, long long nc,
-                     long long m, int planes, int device, void* stream) {
+                     long long m, int planes, int vec, int lanes, int chunks,
+                     int device, void* stream) {
   return launch_spmm<float>(data, offsets, x, y, ndiag, nr, nc, m, planes,
-                            device, stream);
+                            vec, lanes, chunks, device, stream);
 }
 
 int slt_dia_spmm_f64(const void* data, const void* offsets, const void* x,
                      void* y, long long ndiag, long long nr, long long nc,
-                     long long m, int planes, int device, void* stream) {
+                     long long m, int planes, int vec, int lanes, int chunks,
+                     int device, void* stream) {
   return launch_spmm<double>(data, offsets, x, y, ndiag, nr, nc, m, planes,
-                             device, stream);
+                             vec, lanes, chunks, device, stream);
 }
 
 int slt_dia_chain_f32(const void* data, const void* offsets, const void* x,

@@ -35,7 +35,7 @@ _I64 = ctypes.c_longlong
 _SPMV_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_double,
               ctypes.c_int, _P]
 _DIA_SPMM_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_int,
-                  ctypes.c_int, _P]
+                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
 _CHAIN_ARGS = [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int,
                ctypes.c_double, ctypes.c_int, _P]
 _WELL_SPMV_ARGS = [_P, _P, _P, _P, _P, _I64, ctypes.c_int, _P]

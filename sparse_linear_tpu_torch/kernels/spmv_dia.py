@@ -9,11 +9,24 @@ Counterpart of :mod:`sparse_linear_tpu.kernels.spmv_pallas`.
 * :func:`dia_spmv_chain` (kernel B) replaces ``_chain_kernel`` /
   ``dia_spmv_chain``: y = (alpha A)^k x in one cooperative launch.
 * :func:`dia_spmm_kernel` and :func:`dia_spmm_planes_kernel` (kernel A's
-  multi-RHS form, ``dia_spmm_kernel<T>`` / ``dia_spmm_planes_kernel<T>``)
-  replace the XLA forms ``sparse_linear_tpu/kernels/spmv.py:45-90``
-  (``dia_spmm``, ``dia_spmm_planes``) that FEAST's banded route runs
+  multi-RHS form, ``dia_spmm_kernel<T, V, G, C>`` /
+  ``dia_spmm_planes_kernel<T, TP>``) replace the XLA forms
+  ``sparse_linear_tpu/kernels/spmv.py:45-90`` (``dia_spmm``,
+  ``dia_spmm_planes``) that FEAST's banded route runs
   (``eig/real_pipeline.py:124-132``): Y = A X for X column-major (ncols, m)
-  or plane-major (m, ncols).  Every column is bitwise kernel A on it.
+  or plane-major (m, ncols).  What bounds it is bytes (the diagonals, X and
+  Y once), with L2 serving X's re-reads.  A block stages its tile of rows'
+  diagonals and per-diagonal row ranges in shared memory once; column-major,
+  a group of lanes takes a row of X in 16-byte vectors (one value a lane
+  where m * itemsize is not a multiple of 16 or X or Y is not 16-byte
+  aligned), up to four chunks a lane (a thread takes two rows at one or
+  two chunks, one row past that), all of a diagonal's loads in flight
+  together; plane-major, a thread takes a row and up to four planes at
+  once.  :func:`_dia_spmm_plan` picks the
+  geometry from m, the item size, the pointers' alignment and the layout
+  (never a fallback).  Every entry sums its diagonals in stored order from
+  zero with one fma each, so every column is bitwise kernel A on it,
+  whatever the geometry.
 
 A wrapper takes the plain PyTorch version (:func:`.spmv.dia_spmv`,
 :func:`.spmv.dia_spmm`, :func:`.spmv.dia_spmm_planes`) only because its
@@ -234,6 +247,39 @@ def dia_spmm_planes_kernel(dia, xp: torch.Tensor) -> torch.Tensor:
     return _launch_spmm(name, dia, xp, True, device)
 
 
+# The multi-RHS form's geometry (csrc/dia_spmv.cu).  Column-major: a group
+# of lanes takes one row of X, at most _ROW_BYTES of it a chunk, and a lane
+# holds at most _MAX_CHUNKS chunks before m is tiled.  Plane-major: one
+# thread a row, at most _PLANES_A_PASS planes at a time.  On an NVIDIA H100
+# 80GB HBM3 at 700.00 W (tools/torch_dia_spmm_probe.py, 1024**2 and
+# 2048**2, m = 16, 80, 160) five chunks a lane ran slower than four at six
+# of the eight shapes that take more than three, and 28-44 % slower at
+# m = 160 in f64; four planes took 7-16 % less time than eight.
+_ROW_BYTES = 128
+_MAX_CHUNKS = 4
+_PLANES_A_PASS = 4
+
+
+def _dia_spmm_plan(m: int, itemsize: int, vector: bool,
+                   planes: bool) -> tuple[int, int]:
+    """(lanes a row, chunks a lane) of kernel A's multi-RHS form for ``m``
+    right-hand sides; plane-major (1, planes a thread takes at once).
+    ``vector``: X and Y can be read and written in 16-byte vectors (m *
+    itemsize a multiple of 16, both 16-byte aligned); else one value a
+    lane.  The lanes of a row are the fewest (a power of two) that cover m,
+    up to one 128-byte run; past that a lane takes more chunks (vector
+    lanes only, at most four), and past those the kernel tiles m."""
+    if planes:
+        return 1, min(_PLANES_A_PASS, 1 << (m - 1).bit_length())
+    per_lane = 16 // itemsize if vector else 1
+    lanes_max = _ROW_BYTES // (per_lane * itemsize)
+    units = -(-m // per_lane)
+    if units <= lanes_max:
+        return 1 << (units - 1).bit_length(), 1
+    cap = _MAX_CHUNKS if vector else 1
+    return lanes_max, min(-(-units // lanes_max), cap)
+
+
 def _launch_spmm(name, dia, x, planes, device):
     nr, nc = dia.shape
     dtype = torch.result_type(dia.data, x)
@@ -247,11 +293,15 @@ def _launch_spmm(name, dia, x, planes, device):
                     device=device)
     if nr == 0 or m == 0:
         return y
+    item = y.element_size()
+    vector = (not planes and m * item % 16 == 0 and x.data_ptr() % 16 == 0
+              and y.data_ptr() % 16 == 0)
+    lanes, chunks = _dia_spmm_plan(m, item, vector, planes)
     lib = _build.load_library()
     fn = lib.slt_dia_spmm_f32 if dtype == torch.float32 else lib.slt_dia_spmm_f64
     code = fn(data.data_ptr(), dia.offsets_tensor.data_ptr(), x.data_ptr(),
               y.data_ptr(), len(dia.offsets), nr, nc, m, int(planes),
-              device.index, _stream(device))
+              int(vector), lanes, chunks, device.index, _stream(device))
     _build.check(lib, code, f"{name} launch")
     dia_spmm_kernel.launches += 1
     return y

@@ -183,7 +183,7 @@ def _dia_case(case, dtype, dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("m", [1, 5, 16, 33, 80, 96])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 16, 33, 80, 96, 160, 1100])
 @pytest.mark.parametrize("case", DIA_CASES)
 def test_dia_spmm_kernel_matches_plain(dev, dtype, m, case):
     a = _dia_case(case, dtype, dev)
@@ -202,7 +202,7 @@ def test_dia_spmm_kernel_matches_plain(dev, dtype, m, case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("m", [16, 80])
+@pytest.mark.parametrize("m", [5, 16, 80, 160])
 @pytest.mark.parametrize("case", ["p2d_45", "wide", "flat"])
 def test_dia_spmm_columns_are_kernel_a(dev, dtype, m, case):
     """Each entry sums its diagonals in stored order from zero with one fma,
@@ -217,6 +217,76 @@ def test_dia_spmm_columns_are_kernel_a(dev, dtype, m, case):
         col = dia_spmv_kernel(a, x[:, t].contiguous())
         assert torch.equal(y[:, t], col) and torch.equal(yp[t], col)
     assert torch.equal(dia_spmm_kernel(a, x), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m", [4, 8, 80])
+def test_dia_spmm_misaligned_views(dev, dtype, m):
+    """An X, and plane-major planes of Y's size, that start one element
+    past a 16-byte boundary (contiguous views at storage offset 1) take the
+    scalar lanes: the result is bitwise the aligned call's, and nothing
+    outside the view is read (its neighbours are NaN, which would show)."""
+    a = _dia_case("tall", dtype, dev)
+    nr, nc = a.shape
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(rng.standard_normal((nc, m)), dtype=dtype, device=dev)
+    xp = torch.as_tensor(rng.standard_normal((m, nc)), dtype=dtype,
+                         device=dev)
+    for src, planes in ((x, False), (xp, True)):
+        flat = torch.full((src.numel() + 8,), float("nan"), dtype=dtype,
+                          device=dev)
+        view = flat[1:1 + src.numel()].view(src.shape)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        view.copy_(src)
+        call = dia_spmm_planes_kernel if planes else dia_spmm_kernel
+        y = call(a, view)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(y).all())
+        assert torch.equal(y, call(a, src))
+        plain = dia_spmm_planes(a, src) if planes else dia_spmm(a, src)
+        assert _rel(y, plain) <= RTOL[dtype]
+    # a Y-sized plane-major input of the square operator, misaligned
+    sq = _dia_case("p2d_45", dtype, dev)
+    ys = torch.as_tensor(rng.standard_normal((m, sq.shape[0])), dtype=dtype,
+                         device=dev)
+    flat = torch.full((ys.numel() + 8,), float("nan"), dtype=dtype,
+                      device=dev)
+    view = flat[1:1 + ys.numel()].view(ys.shape)
+    view.copy_(ys)
+    assert torch.equal(dia_spmm_planes_kernel(sq, view),
+                       dia_spmm_planes_kernel(sq, ys))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m,planes,other", [
+    (16, False, (8, 4)),   # one pass of the widest chunks, most lanes idle
+    (80, False, (8, 1)),   # one chunk a lane, two rows a thread: m tiled
+    (80, False, (2, 1)),
+    (160, False, (8, 2)),
+    (3, False, (1, 1)),    # scalar lanes (m * itemsize not a multiple of 16)
+    (80, True, (1, 1)),    # plane-major: one plane at a time
+    (5, True, (1, 2)),
+])
+def test_dia_spmm_geometries_agree(dev, monkeypatch, dtype, m, planes, other):
+    """The geometry ``_dia_spmm_plan`` picks and a forced other one give
+    bitwise equal results: each entry sums its diagonals in stored order,
+    whatever the lanes, chunks and tiling of m."""
+    from sparse_linear_tpu_torch.kernels import spmv_dia
+
+    a = _dia_case("wide", dtype, dev)
+    rng = np.random.default_rng(10)
+    x = torch.as_tensor(rng.standard_normal((m, a.shape[1]) if planes else
+                                            (a.shape[1], m)), dtype=dtype,
+                        device=dev)
+    call = dia_spmm_planes_kernel if planes else dia_spmm_kernel
+    chosen = spmv_dia._dia_spmm_plan(m, x.element_size(),
+                                     m * x.element_size() % 16 == 0, planes)
+    assert chosen != other
+    y = call(a, x)
+    monkeypatch.setattr(spmv_dia, "_dia_spmm_plan", lambda *_: other)
+    assert torch.equal(call(a, x), y)
 
 
 def test_dia_spmm_kernel_complex_and_refusals(dev):

@@ -23,7 +23,7 @@ from sparse_linear_tpu.kernels import spmv as jspmv  # noqa: E402
 from sparse_linear_tpu.kernels import spmv_pallas  # noqa: E402
 from sparse_linear_tpu.utils import grids as jgrids  # noqa: E402
 from sparse_linear_tpu_torch.formats import structured as tst  # noqa: E402
-from sparse_linear_tpu_torch.kernels import _build  # noqa: E402
+from sparse_linear_tpu_torch.kernels import _build, spmv_dia  # noqa: E402
 from sparse_linear_tpu_torch.kernels import spmv as tspmv  # noqa: E402
 from sparse_linear_tpu_torch.kernels.spmv_dia import (  # noqa: E402
     dia_spmm_kernel,
@@ -287,7 +287,7 @@ def _spmm_operator(which, rng):
     return j
 
 
-@pytest.mark.parametrize("m", [1, 3, 40])
+@pytest.mark.parametrize("m", [1, 3, 40, 160])
 @pytest.mark.parametrize("which", ["square", "wide", "tall", "flat"])
 def test_dia_spmm_kernels_vs_jax(which, m):
     """dia_spmm_kernel / dia_spmm_planes_kernel (their plain version on CPU
@@ -307,6 +307,43 @@ def test_dia_spmm_kernels_vs_jax(which, m):
     assert got_p.shape == want_p.shape == (m, nr)
     assert np.abs(np_of(got_p) - want_p).max() <= 1e-15 * np.abs(
         want_p).max()
+
+
+@pytest.mark.parametrize("m,itemsize,vector,planes,plan", [
+    (1, 8, False, False, (1, 1)),     # a (nc, 1) X: one lane a row
+    (3, 8, False, False, (4, 1)),     # scalar: the fewest lanes covering m
+    (5, 4, False, False, (8, 1)),
+    (17, 8, False, False, (16, 1)),   # one 128-byte run; m tiled past it
+    (33, 4, False, False, (32, 1)),
+    (4, 4, True, False, (1, 1)),      # one float4 a row
+    (16, 4, True, False, (4, 1)),
+    (16, 8, True, False, (8, 1)),     # one 128-byte run of double2
+    (80, 4, True, False, (8, 3)),     # one pass
+    (80, 8, True, False, (8, 4)),     # FEAST's m: past four chunks, tiled
+    (160, 4, True, False, (8, 4)),    # FEAST's complex residual, f32
+    (160, 8, True, False, (8, 4)),
+    (1100, 8, True, False, (8, 4)),
+    (1, 8, False, True, (1, 1)),      # plane-major: planes a thread
+    (2, 4, False, True, (1, 2)),
+    (3, 4, False, True, (1, 4)),
+    (80, 8, False, True, (1, 4)),
+])
+def test_dia_spmm_plan(m, itemsize, vector, planes, plan):
+    """Kernel A's multi-RHS geometry by m: column-major, the fewest lanes
+    (a power of two) that cover a row up to one 128-byte run, then up to
+    four chunks a lane (vector lanes only) before m is tiled; plane-major,
+    one thread a row taking up to four planes at once."""
+    assert spmv_dia._dia_spmm_plan(m, itemsize, vector, planes) == plan
+    lanes, chunks = plan
+    if planes:
+        assert lanes == 1 and chunks <= spmv_dia._PLANES_A_PASS
+        return
+    per_lane = 16 // itemsize if vector else 1
+    assert lanes * per_lane * itemsize <= spmv_dia._ROW_BYTES
+    assert chunks <= (spmv_dia._MAX_CHUNKS if vector else 1)
+    # every lane group but the widest covers m in one pass
+    assert lanes * per_lane * chunks >= m or \
+        lanes * per_lane * itemsize == spmv_dia._ROW_BYTES
 
 
 def test_dia_spmm_kernel_wrapper_checks():
