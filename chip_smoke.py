@@ -24,7 +24,17 @@ NVIDIA GPU:
    216**3 and the 3M x 2M DIA (1e-5 / 1e-12), at m = 16, 80 and 160 every
    column bitwise kernel A on that column, with a digest of each result;
    at m = 1100 on 512**2 (both types), the 3M x 2M DIA at m = 768 in f32
-   (nr * m past 2**31), and an X that is not 16-byte aligned.
+   (nr * m past 2**31), and an X that is not 16-byte aligned.  The
+   complex64 / complex128 instantiations (``complex_parity``, 1e-5 /
+   1e-12): kernel A on phase 9's gauge operator at 2048**2, phased
+   1448**2 and 216**3 and a complex 3M x 2M DIA; its multi-RHS form at
+   m = 1, 16, 80, 96 in both layouts (m <= 16 on the two largest), every
+   column bitwise complex kernel A at m = 16 and 80, an X one element off
+   its aligned start; kernels C and D on the permuted gauge operator and
+   a complex skewed 3M x 2M WELL, D at m = 1, 16, 80, 96 in both layouts,
+   every column bitwise C, an offset X; a real operator times a complex x
+   or X, each part bitwise the real kernel; each result bitwise on a
+   second call.
 4. Main path at full size, with the kernels' launch counts set to 0 before
    and read after: 2048**2 Poisson triples on the card -> from_triples ->
    tocsr -> check_matrix -> csr_to_dia; the top of the spectrum by power
@@ -49,7 +59,13 @@ NVIDIA GPU:
    multi-RHS form at FEAST's m = 80 and at m = 16 on 1024**2 and 2048**2,
    and at m = 160 on 1024**2, both types and layouts, beside its plain
    version, its bytes bound (the diagonals, X and Y once), cuSPARSE SpMM
-   and the previous design's times (``PREVIOUS_MS``).
+   and the previous design's times (``PREVIOUS_MS``).  The complex
+   instantiations on phase 9's operators, complex64 and complex128 (8
+   flops a complex term): kernel A on the gauge operator at 2048**2, its
+   multi-RHS form at 1024**2 and m = 80 in both layouts, kernels C and D
+   (m = 16; m = 80 in c128, under the plan's five chunks a lane and under
+   four, bitwise equal) on the permuted gauge operator, each with its
+   plain version, bound and cuSPARSE (or why torch refused it).
 6. Slice-2 main path at full size, with the WELL kernels' launch counts set
    to 0 before and read after: the 2048**2 triples with their unknowns
    relabelled by a seeded permutation (an unstructured numbering) ->
@@ -87,15 +103,31 @@ NVIDIA GPU:
    interval's scale, epsout <= 1e-10), with its contour mode and why, the
    split of its time, the Ritz values and residuals of the spurious pairs
    each loop rejected, and the phase's peak device memory (< 75 GB).
+9. Complex Hermitian at full size (``complex_phase``), from its own random
+   stream, each kernel's launch count set to 0 before its run and read
+   after: the gauge-transformed 2048**2 operator (phase e^{0.3 i} on the
+   x-links: D A_0 D^H, Poisson's spectrum) built on the card with
+   ``kron`` and held bitwise against the same operator from triples; CG
+   in c128 to 1e-10 through DIA (complex kernel A) on b = D b_4 (phase 4's
+   b), then on the operator permuted by a seeded relabelling through
+   ``recommend_format`` -> WELL (complex kernel C), each with its true
+   residual <= 1e-9 and its iterations beside phases 4 and 6; FEAST's 50
+   lowest pairs of the 1,048,576-dof gauge operator (the DIA route, the
+   complex multi-RHS form; cold and warm) and of the permuted 192**2 one
+   (the WELL route, complex kernel D), with ``ops.linalg.spmm`` made to
+   raise, each against the analytic spectrum (<= 1e-10, epsout <=
+   1e-10), peak < 75 GB.
 
-Prints one JSON line of the FEAST runs (``feast``: wall cold / warm,
+Prints one JSON line of the FEAST runs of phases 8 and 9 (``feast``: wall cold / warm,
 loops, epsout, errors, mode, split, peak GB), one JSON line of the direct
 solver's cases (``direct``: analyze s,
 factor s, solve ms, refinement steps, residual, peak GB, levels, buckets,
 fronts), one JSON line of the kernels (``ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by``, ``bound_share`` = bound_ms / ms, ``library_ms``, null where
 no library call computes the function, ``launches`` from the main paths,
-``max_abs_err``), then as the last line
+``max_abs_err``; the four complex128 instantiations as ``dia_spmv_c128``,
+``dia_spmm_c128``, ``well_spmv_c128`` and ``well_spmm_c128``, launches from
+phase 9), then as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
 is then non-zero and the last line is not printed.  Without a CUDA device,
 or without the package beside this script, it fails before any result.
@@ -104,6 +136,7 @@ or without the package beside this script, it fails before any result.
 from __future__ import annotations
 
 import argparse
+import cmath
 import contextlib
 import dataclasses
 import hashlib
@@ -146,6 +179,10 @@ PREVIOUS_MS = {"well_spmv torch.float32": 0.1704, "well_spmv torch.float64": 0.3
                "dia_spmm poisson_2d(2048) m=80 torch.float64": (4.6425, 3.2248),
                "dia_spmm poisson_2d(2048) m=16 torch.float32": (0.7845, 0.5865),
                "dia_spmm poisson_2d(2048) m=16 torch.float64": (0.8639, 0.6349)}
+
+
+# phase 9: the phase e^{i THETA} on the x-links of the gauge operator
+THETA = 0.3
 
 
 def require(cond, msg):
@@ -567,6 +604,585 @@ def dia_spmm_parity(dev, gen, random_dia, parity_abs) -> None:
     torch.cuda.empty_cache()
 
 
+def timed(f):
+    """(f(), wall seconds), the card synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = f()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def feast_errors(res, want, interval):
+    """(max |dlambda| / max(|emin|, |emax|, 1), max elementwise relative
+    error) of an eigsh result against the analytic values."""
+    import numpy as np
+
+    got = np.sort(np.asarray(res.values))
+    require(got.shape == want.shape,
+            f"found {got.shape[0]} pairs, expected {want.shape[0]}")
+    scale = max(abs(interval[0]), abs(interval[1]), 1.0)
+    d = np.abs(got - want)
+    return float(d.max() / scale), float((d / np.abs(want)).max())
+
+
+def feast_solve(rows, phase, dev, card, name, a, interval, want, params,
+                warm=1, rel=False, launches_of=None):
+    """One ``eigsh(80, interval, a, params)`` timed cold, then the best of
+    ``warm`` warm calls, held to INFO_OK, epsout <= 1e-10 and the analytic
+    spectrum ``want`` within 1e-10 on the interval's scale (elementwise too
+    if ``rel``); appends its row to ``rows``, prints it with the split of
+    the cold run a loop, and returns the result.  ``launches_of`` (a
+    wrapper) adds its launches during the run to the row."""
+    import torch
+
+    from sparse_linear_tpu_torch.eig import pipeline
+    from sparse_linear_tpu_torch.eig.feast import INFO_OK, eigsh
+
+    before = None if launches_of is None else launches_of.launches
+    res, cold_s = timed(lambda: eigsh(80, interval, a, params))
+    split = {k: v for k, v in pipeline.last_run.items()}
+    warm_s = None
+    for _ in range(warm):
+        res = None
+        res, w = timed(lambda: eigsh(80, interval, a, params))
+        warm_s = w if warm_s is None else min(warm_s, w)
+    err, err_rel = feast_errors(res, want, interval)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    row = {"name": name, "n": a.shape[0], "m0": 80,
+           "interval": list(interval), "cold_s": cold_s,
+           "warm_s": warm_s, "loops": res.iterations,
+           "epsout": res.epsout, "n_found": res.n_found,
+           "info": res.info, "max_err_scaled": err,
+           "max_rel_err": err_rel, "mode": split["mode"],
+           "why": split["why"], "routes": list(split["routes"]),
+           "analyze_s": split["analyze_s"],
+           "factor_s": split["factor_s"], "split": split["loops"],
+           "peak_gb": peak}
+    if launches_of is not None:
+        row["launches"] = launches_of.launches - before
+    rows.append(row)
+    solves = sum(lp["solve_s"] for lp in split["loops"])
+    rr = sum(lp["rr_s"] for lp in split["loops"])
+    eighs = sum(lp["eigh_s"] for lp in split["loops"])
+    warm_txt = "" if warm_s is None else f", warm {warm_s:.3f} s"
+    print(f"{phase} [{card}] {name}: n {a.shape[0]}, cold "
+          f"{cold_s:.3f} s{warm_txt}; {res.iterations} loops, "
+          f"{res.n_found} pairs, epsout {res.epsout:.3e}, info "
+          f"{res.info}; against the analytic spectrum {err:.3e} on the "
+          f"interval's scale, {err_rel:.3e} elementwise relative (tol "
+          f"1e-10); contour {split['mode']} ({split['why']}), routes "
+          f"{split['routes']}; cold split: analyze "
+          f"{split['analyze_s']:.3f} s, factor {split['factor_s']:.3f} s,"
+          f" solves {solves:.3f} s, Rayleigh-Ritz products {rr:.3f} s, "
+          f"host eighs {eighs:.3f} s over {len(split['loops'])} loops; "
+          f"peak {peak:.3f} GB", flush=True)
+    for i, lp in enumerate(split["loops"]):
+        ghosts = ", ".join(f"{v:.9f}: {r:.4e}" for v, r in lp["ghosts"])
+        print(f"{phase} [{card}] {name} cold loop {i}: solves "
+              f"{lp['solve_s']:.3f} s (streamed factors "
+              f"{lp['factor_s']:.3f} s), products {lp['rr_s']:.3f} s, "
+              f"eighs {lp['eigh_s']:.4f} s; {lp['genuine']} genuine "
+              f"pairs at {lp['epsout']:.3e}, {lp['rejected']} spurious "
+              f"rejected (Ritz value: residual {{{ghosts}}})", flush=True)
+    require(res.info == INFO_OK, f"{name}: info {res.info}")
+    require(res.epsout <= 1e-10, f"{name}: epsout {res.epsout}")
+    require(err <= 1e-10, f"{name}: eigenvalue error {err}")
+    if rel:
+        require(err_rel <= 1e-10, f"{name}: relative error {err_rel}")
+    vec = res.vectors
+    require(tuple(vec.shape) == (a.shape[0], res.n_found)
+            and vec.device.type == "cuda"
+            and bool(torch.isfinite(vec).all()), f"{name}: vectors")
+    return res
+
+
+def gauge_chain(g, theta, dev):
+    """The 1D operator with 2 on its diagonal, -e^{i theta} above it and
+    -e^{-i theta} below, complex128, built from triples on the card."""
+    import torch
+
+    import sparse_linear_tpu_torch as st
+
+    c128 = torch.complex128
+    i = torch.arange(g, device=dev)
+    ph = cmath.exp(1j * theta)
+    vals = torch.cat([torch.full((g,), 2.0, dtype=c128, device=dev),
+                      torch.full((g - 1,), -ph, dtype=c128, device=dev),
+                      torch.full((g - 1,), -ph.conjugate(), dtype=c128,
+                                 device=dev)])
+    return st.from_triples((g, g), torch.cat([i, i[:-1], i[1:]]),
+                           torch.cat([i, i[1:], i[:-1]]), vals).tocsr()
+
+
+def gauge_kron(g, theta, dev):
+    """The g**2 gauge-transformed five-point operator, kron(I, T_theta) +
+    kron(T_0, I), built on the card with the port's ``kron``: A[p, p + e_x]
+    = -e^{i theta}, A[p + e_x, p] = -e^{-i theta}, the rest as in
+    ``poisson_2d``.  It is D A_0 D^H with D = diag(e^{i theta x_p}) unitary:
+    complex Hermitian, banded (5 diagonals), with Poisson's spectrum."""
+    import torch
+
+    import sparse_linear_tpu_torch as st
+
+    eye = st.eye(g, dtype=torch.complex128, device=dev)
+    return (st.kron(eye, gauge_chain(g, theta, dev))
+            + st.kron(gauge_chain(g, 0.0, dev), eye))
+
+
+def gauge_triples(g, theta, dev):
+    """(rows, cols, values) of the same operator, written out."""
+    import torch
+
+    c128 = torch.complex128
+    p = torch.arange(g * g, device=dev)
+    right, up = p[p % g < g - 1], p[p < g * g - g]
+    ph = cmath.exp(1j * theta)
+
+    def full(k, v):
+        return torch.full((k,), v, dtype=c128, device=dev)
+
+    return (torch.cat([p, right, right + 1, up, up + g]),
+            torch.cat([p, right + 1, right, up + g, up]),
+            torch.cat([full(g * g, 4.0), full(right.shape[0], -ph),
+                       full(right.shape[0], -ph.conjugate()),
+                       full(2 * up.shape[0], -1.0)]))
+
+
+def gauge_phases(g, theta, dev):
+    """The diagonal of D, e^{i theta x_p} for p = x + g y."""
+    import torch
+
+    x = (torch.arange(g * g, device=dev) % g).to(torch.float64)
+    return torch.polar(torch.ones_like(x), theta * x)
+
+
+def permuted(csr, gen):
+    """``csr`` with rows and columns relabelled by one seeded permutation,
+    and the permutation."""
+    import torch
+
+    import sparse_linear_tpu_torch as st
+
+    n = csr.shape[0]
+    coo = csr.tocoo()
+    perm = torch.randperm(n, device=csr.data.device, generator=gen)
+    return st.from_triples((n, n), perm[coo.row.long()],
+                           perm[coo.col.long()], coo.data).tocsr(), perm
+
+
+@contextlib.contextmanager
+def no_csr_spmm():
+    """``ops.linalg.spmm`` (the plain gather / ``index_add_`` product)
+    raises while the block runs: a path that reaches it fails."""
+    from sparse_linear_tpu_torch.ops import linalg
+
+    kept = linalg.spmm
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("chip_smoke: ops.linalg.spmm reached on the "
+                           "card")
+
+    linalg.spmm = refuse
+    try:
+        yield
+    finally:
+        linalg.spmm = kept
+
+
+def complex_parity(dev, gen, parity_abs, grid=2048, odd=1448, cube=216,
+                   rect=(3_000_000, 2_000_000)) -> None:
+    """Phase 3, the complex instantiations of kernels A (and its multi-RHS
+    form), C and D against their plain versions, complex64 (1e-5) and
+    complex128 (1e-12): kernel A on the gauge operator at 2048**2, a
+    phased 1448**2 and 216**3 and a complex 3M x 2M DIA; the multi-RHS
+    form at m = 1, 16, 80, 96 in both layouts on those (m <= 16 on the
+    216**3 and 3M x 2M ones), every column bitwise complex kernel A at
+    m = 16 and 80 on 1448**2, an X one element off its aligned start; a
+    real operator times a complex x and X, each part bitwise the real
+    kernel; kernels C and D on the permuted gauge operator at 2048**2 and a
+    complex skewed 3M x 2M WELL, D at m = 1, 16, 80, 96 in both layouts,
+    every column bitwise C at m = 16 and 80, with an X one element off its
+    aligned start; every result again bitwise on a second call, with a
+    digest of each SpMV and of the m = 16 results.  The sizes are
+    keywords, so that a probe can call it small."""
+    import torch
+
+    import sparse_linear_tpu_torch as st
+    from sparse_linear_tpu_torch.formats.structured import DIA, csr_to_dia
+    from sparse_linear_tpu_torch.kernels.spmv import (
+        dia_spmm,
+        dia_spmm_planes,
+        dia_spmv,
+    )
+    from sparse_linear_tpu_torch.kernels.spmv_dia import (
+        dia_spmm_kernel,
+        dia_spmm_planes_kernel,
+        dia_spmv_kernel,
+    )
+    from sparse_linear_tpu_torch.kernels.spmv_well import (
+        well_spmm,
+        well_spmm_planes,
+        well_spmm_planes_plain,
+        well_spmv,
+        well_spmv_plain,
+    )
+    from sparse_linear_tpu_torch.utils.grids import poisson_2d, poisson_3d
+
+    c64, c128, f64 = torch.complex64, torch.complex128, torch.float64
+    tol = {c64: 1e-5, c128: 1e-12}
+
+    def crandn(shape, dtype):
+        return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+
+    def phased(a, dtype):
+        """A DIA's values turned by seeded random phases (zeros stay 0)."""
+        turn = torch.polar(torch.ones(a.data.shape, dtype=f64, device=dev),
+                           2 * math.pi * torch.rand(
+                               a.data.shape, dtype=f64, device=dev,
+                               generator=gen))
+        return DIA(data=(a.data.to(c128) * turn).to(dtype), shape=a.shape,
+                   offsets=a.offsets)
+
+    def check(label, dtype, y, ref, again=None):
+        """Parity with the plain version; ``again``: whether a second call
+        gave bitwise the same result.  A digest of y is printed for a 1-D
+        y (the SpMVs); the multi-RHS results are digested at m = 16 in the
+        column checks (hashing every GB-sized Y on the host took most of
+        this phase's time)."""
+        err, rel = max_err(y, ref)
+        rep = "" if again is None else f", repeated call bitwise equal " \
+            f"{again}" + (f", digest {digest(y)}" if y.ndim == 1 else "")
+        print(f"phase 3 parity {label} {dtype}: max rel err {rel:.3e} (max "
+              f"abs {err:.3e}, tol {tol[dtype]:.0e}){rep}", flush=True)
+        require(rel <= tol[dtype], f"{label} {dtype} disagrees: {rel}")
+        require(again is None or again, f"{label} {dtype} not repeatable")
+        parity_abs[f"{label} {dtype}"] = err
+
+    def slabbed(plain, x, planes, width=32):
+        """The plain version ``width`` right-hand sides at a time."""
+        m = x.shape[0] if planes else x.shape[1]
+        parts = [plain(x[t:t + width] if planes else x[:, t:t + width])
+                 for t in range(0, m, width)]
+        return torch.cat(parts, 0 if planes else 1)
+
+    nr_r, nc_r = rect
+    t0 = time.perf_counter()
+    gauge = gauge_kron(grid, THETA, dev)
+    for dtype in (c64, c128):
+        ops = [(f"gauge {grid}^2", csr_to_dia(gauge.map_values(
+                    lambda v: v.to(dtype))), (1, 16, 80, 96)),
+               (f"phased poisson_2d({odd})", phased(poisson_2d(
+                   odd, dtype=f64, fmt="dia", device=dev), dtype),
+                (1, 16, 80, 96)),
+               (f"phased poisson_3d({cube})", phased(poisson_3d(
+                   cube, dtype=f64, fmt="dia", device=dev), dtype), (1, 16)),
+               (f"complex {nr_r}x{nc_r}", phased(DIA(
+                   data=torch.randn((5, nr_r), dtype=f64, device=dev,
+                                    generator=gen),
+                   shape=(nr_r, nc_r),
+                   offsets=(-(nc_r // 2), -5, 0, 3, nc_r * 3 // 4)), dtype),
+                (1, 16))]
+        for label, a, ms in ops:
+            t_op = time.perf_counter()
+            nr, nc = a.shape
+            i = torch.arange(nr, device=dev)
+            for d, off in enumerate(a.offsets):  # zeros off the matrix
+                a.data[d].masked_fill_((i + off < 0) | (i + off >= nc), 0)
+            x = crandn(nc, dtype)
+            y = dia_spmv_kernel(a, x)
+            check(f"dia_spmv {label}", dtype, y, dia_spmv(a, x),
+                  torch.equal(dia_spmv_kernel(a, x), y))
+            for m in ms:
+                x = crandn((nc, m), dtype)
+                y = dia_spmm_kernel(a, x)
+                check(f"dia_spmm {label} m={m}", dtype, y,
+                      slabbed(lambda s: dia_spmm(a, s), x, False),
+                      torch.equal(dia_spmm_kernel(a, x), y))
+                xp = x.T.contiguous()
+                del x, y
+                yp = dia_spmm_planes_kernel(a, xp)
+                check(f"dia_spmm_planes {label} m={m}", dtype, yp,
+                      slabbed(lambda s: dia_spmm_planes(a, s), xp, True),
+                      torch.equal(dia_spmm_planes_kernel(a, xp), yp))
+                del xp, yp
+                torch.cuda.empty_cache()
+            if label.startswith("phased poisson_2d"):
+                for m in (16, 80):
+                    x = crandn((nc, m), dtype)
+                    y = dia_spmm_kernel(a, x)
+                    yp = dia_spmm_planes_kernel(a, x.T.contiguous())
+                    same = all(torch.equal(y[:, t], col)
+                               and torch.equal(yp[t], col)
+                               for t in range(m)
+                               for col in (dia_spmv_kernel(
+                                   a, x[:, t].contiguous()),))
+                    flat = torch.full((nc * m + 4,), complex("nan+nanj"),
+                                      dtype=dtype, device=dev)
+                    xm = flat[1:1 + nc * m].view(nc, m)
+                    xm.copy_(x)
+                    off = dia_spmm_kernel(a, xm)
+                    off_same = torch.equal(off, y)
+                    torch.cuda.synchronize()
+                    digests = f"; digests {digest(y)} {digest(yp)}" \
+                        if m == 16 else ""
+                    print(f"phase 3 dia_spmm {label} {dtype} m={m}: every "
+                          f"column of both layouts bitwise dia_spmv {same}; "
+                          f"X at data_ptr % 16 = {xm.data_ptr() % 16} "
+                          f"bitwise the aligned call {off_same}{digests}",
+                          flush=True)
+                    require(same, f"complex dia_spmm {label} m={m} differs "
+                            "from dia_spmv")
+                    require(off_same, f"complex dia_spmm {label} m={m} "
+                            "offset X")
+                    del x, y, yp, flat, xm, off
+            del a
+            torch.cuda.empty_cache()
+            print(f"phase 3 complex {label} {dtype}: "
+                  f"{time.perf_counter() - t_op:.1f} s", flush=True)
+
+    # a real operator times a complex x / X: the real kernels on the real
+    # block, each part bitwise the real kernel on it
+    a = poisson_2d(odd, dtype=f64, fmt="dia", device=dev)
+    x = crandn((a.shape[1], 16), c128)
+    y, yv = dia_spmm_kernel(a, x), dia_spmv_kernel(a, x[:, 0].contiguous())
+    parts = (torch.equal(y.real, dia_spmm_kernel(a, x.real.contiguous()))
+             and torch.equal(y.imag, dia_spmm_kernel(a, x.imag.contiguous()))
+             and torch.equal(yv.real, dia_spmv_kernel(
+                 a, x[:, 0].real.contiguous())))
+    check("dia_spmm real operator complex X m=16", c128, y, dia_spmm(a, x))
+    print(f"phase 3 dia real operator, complex x and X: each part bitwise "
+          f"the real kernel {parts}", flush=True)
+    require(parts, "real DIA times complex x: parts differ")
+    del a, x, y, yv
+
+    # kernels C and D on the permuted gauge operator and a skewed WELL
+    t_dia = time.perf_counter() - t0
+    pgen = torch.Generator(device=dev).manual_seed(7)
+    pg, _ = permuted(gauge, pgen)
+    del gauge
+    nr_s, nc_s = rect
+    lens = torch.randint(1, 65, (nr_s,), device=dev, generator=gen)
+    lens[torch.randint(0, nr_s, (4,), device=dev, generator=gen)] = min(
+        4096, nc_s)
+    rows = torch.repeat_interleave(torch.arange(nr_s, device=dev), lens)
+    skew = st.from_triples((nr_s, nc_s), rows, torch.randint(
+        0, nc_s, rows.shape, device=dev, generator=gen),
+        crandn(rows.shape[0], c128)).tocsr()
+    del rows, lens
+    t_build = time.perf_counter() - t0 - t_dia
+    for dtype in (c64, c128):
+        t_well = time.perf_counter()
+        for label, csr, ms in ((f"permuted gauge {grid}^2", pg,
+                                (1, 16, 80, 96)),
+                               (f"skewed {nr_s}x{nc_s}", skew, (16,))):
+            w = st.csr_to_well(csr.map_values(lambda v: v.to(dtype)))
+            x = crandn(w.shape[1], dtype)
+            y = well_spmv(w, x)
+            check(f"well_spmv {label}", dtype, y, well_spmv_plain(w, x),
+                  torch.equal(well_spmv(w, x), y))
+            for m in ms:
+                xp = crandn((m, w.shape[1]), dtype)
+                y = well_spmm_planes(w, xp)
+                ref = torch.cat([well_spmm_planes_plain(w, xp[t:t + 4])
+                                 for t in range(0, m, 4)])
+                check(f"well_spmm_planes {label} m={m}", dtype, y, ref,
+                      torch.equal(well_spmm_planes(w, xp), y))
+                yc = well_spmm(w, xp.T.contiguous())
+                check(f"well_spmm {label} m={m}", dtype, yc.T, ref,
+                      torch.equal(well_spmm(w, xp.T.contiguous()), yc))
+                if m in (16, 80):
+                    same = all(torch.equal(yc[:, t], well_spmv(w, xp[t]))
+                               for t in range(m))
+                    # X one element past its aligned start (the scalar
+                    # lanes for complex64), NaN around it
+                    nc = w.shape[1]
+                    flat = torch.full((nc * m + 4,), complex("nan+nanj"),
+                                      dtype=dtype, device=dev)
+                    xm = flat[1:1 + nc * m].view(nc, m)
+                    xm.copy_(xp.T)
+                    off_same = torch.equal(well_spmm(w, xm), yc)
+                    digests = f"; digest {digest(yc)}" if m == 16 else ""
+                    print(f"phase 3 well_spmm {label} {dtype} m={m}: every "
+                          f"column bitwise well_spmv {same}; X at data_ptr "
+                          f"% 16 = {xm.data_ptr() % 16} bitwise the aligned "
+                          f"call {off_same}{digests}", flush=True)
+                    require(same, f"complex well_spmm {label} m={m} differs "
+                            "from well_spmv")
+                    require(off_same, f"complex well_spmm {label} m={m} "
+                            "offset X")
+                    del flat, xm
+                del xp, y, ref, yc
+                torch.cuda.empty_cache()
+            del w
+            print(f"phase 3 complex {label} {dtype}: "
+                  f"{time.perf_counter() - t_well:.1f} s", flush=True)
+            t_well = time.perf_counter()
+    wr = st.csr_to_well(pg.map_values(lambda v: v.real.contiguous()))
+    x = crandn((pg.shape[1], 16), c128)
+    y = well_spmm(wr, x)
+    parts = (torch.equal(y.real, well_spmm(wr, x.real.contiguous()))
+             and torch.equal(y.imag, well_spmm(wr, x.imag.contiguous())))
+    check("well_spmm real operator complex X m=16", c128, y,
+          well_spmm_planes_plain(wr, x.T).T)
+    print(f"phase 3 well real operator, complex X: each part bitwise the "
+          f"real kernel {parts}", flush=True)
+    require(parts, "real WELL times complex X: parts differ")
+    del wr, x, y, pg, skew
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"phase 3 complex parity: {time.perf_counter() - t0:.1f} s (DIA "
+          f"{t_dia:.1f} s, the skewed WELL's build {t_build:.1f} s)",
+          flush=True)
+
+
+def complex_phase(dev, card, seed, b_real, dia_its, well_its,
+                  grids=(2048, 1024, 192)):
+    """Phase 9: complex Hermitian operators on the card, through the
+    complex kernels, at full width.  The gauge operator (``gauge_kron``)
+    built with ``kron`` at ``grids[0]``**2, held bitwise against the same
+    operator from triples; (a) CG on it through DIA (complex kernel A) with
+    b = D b_real, phase 4's right-hand side turned by D; (b) CG on it
+    permuted by a seeded relabelling, through ``recommend_format`` ->
+    WELL (complex kernel C); (c) FEAST's 50 lowest pairs at
+    ``grids[1]``**2 (the DIA route, complex kernel A's multi-RHS form); (d)
+    the permuted operator at ``grids[2]``**2 (AMD, the WELL route, complex
+    kernel D); ``ops.linalg.spmm`` raises throughout (c) and (d).  Returns
+    (rows of the ``feast`` JSON line, launches by kernel, CG counts)."""
+    import torch
+
+    import sparse_linear_tpu_torch as st
+    from sparse_linear_tpu_torch.eig import pipeline
+    from sparse_linear_tpu_torch.eig.feast import FeastParams
+    from sparse_linear_tpu_torch.formats.structured import DIA
+    from sparse_linear_tpu_torch.kernels.spmv_dia import (
+        dia_spmm_kernel,
+        dia_spmv_kernel,
+    )
+    from sparse_linear_tpu_torch.kernels.spmv_well import well_spmm, well_spmv
+    from sparse_linear_tpu_torch.solve.cg import cg
+
+    c128 = torch.complex128
+    cgen = torch.Generator(device=dev).manual_seed(seed + 6)
+    rows, launches, counts = [], {}, {}
+    t_phase = time.perf_counter()
+    pipeline.clear_pipeline_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    g = grids[0]
+    n = g * g
+    a, kron_s = timed(lambda: gauge_kron(g, THETA, dev))
+    ref = st.from_triples((n, n), *gauge_triples(g, THETA, dev)).tocsr()
+    same = (torch.equal(a.indptr, ref.indptr)
+            and torch.equal(a.indices, ref.indices)
+            and digest(a.data) == digest(ref.data))
+    herm = a.is_hermitian()
+    print(f"phase 9 gauge operator {g}^2 (theta {THETA}): kron(I, T_theta) + "
+          f"kron(T, I) on the card in {kron_s:.3f} s, nnz {a.nnz}, bitwise "
+          f"the operator from triples {same}, Hermitian {herm}", flush=True)
+    require(same, "kron-built gauge operator differs from the triples")
+    require(herm, "gauge operator is not Hermitian")
+    del ref
+
+    def run_cg(label, op, b, csr, counter, phase_its):
+        counter.launches = 0
+        res, cg_s = timed(lambda: cg(op, b, tol=1e-10, maxiter=40_000))
+        bnorm = float(torch.linalg.vector_norm(b))
+        true_res = float(torch.linalg.vector_norm(
+            b - st.spmv(csr, res.x))) / bnorm
+        print(f"phase 9 cg c128 {label}: {res.iterations} iterations "
+              f"({phase_its}), true residual (CSR spmv) {true_res:.3e} "
+              f"(tol 1e-9), {cg_s:.3f} s, "
+              f"{cg_s / max(res.iterations, 1) * 1e3:.4f} ms/iteration, "
+              f"{counter.__name__} launches {counter.launches}", flush=True)
+        require(res.converged, f"cg {label} did not converge")
+        require(bool(torch.isfinite(res.x).all()), f"cg {label}: non-finite")
+        require(true_res <= 1e-9, f"cg {label}: true residual {true_res}")
+        require(counter.launches >= res.iterations,
+                f"cg {label}: {counter.__name__} launches "
+                f"{counter.launches} < {res.iterations} iterations")
+        return res.iterations, counter.launches
+
+    # ---- (a) DIA: complex kernel A
+    kind = st.recommend_format(a)
+    dia = st.to_fast_format(a)
+    require(kind == "dia" and isinstance(dia, DIA) and dia.dtype == c128,
+            f"gauge operator: recommend_format {kind!r}, {type(dia)}")
+    b = gauge_phases(g, THETA, dev) * b_real.to(dev)
+    counts["dia_cg"], launches["dia_spmv complex"] = run_cg(
+        f"gauge {g}^2 through DIA", dia.__matmul__, b, a, dia_spmv_kernel,
+        f"real phase 4: {dia_its}")
+    del dia
+
+    # ---- (b) permuted, through WELL: complex kernel C
+    ap, perm = permuted(a, cgen)
+    del a
+    kind = st.recommend_format(ap)
+    w = st.to_fast_format(ap)
+    require(kind == "well" and isinstance(w, st.WELL) and w.dtype == c128,
+            f"permuted gauge operator: recommend_format {kind!r}")
+    bp = torch.empty_like(b)
+    bp[perm] = b
+    del b, perm
+    counts["well_cg"], launches["well_spmv complex"] = run_cg(
+        f"permuted gauge {g}^2 through WELL", w.__matmul__, bp, ap,
+        well_spmv, f"DIA above: {counts['dia_cg']}; real phase 6: "
+        f"{well_its}")
+    del w, ap, bp
+    torch.cuda.empty_cache()
+
+    # ---- (c) FEAST at grids[1]**2: the DIA route, complex multi-RHS form
+    gb = grids[1]
+    a_b = gauge_kron(gb, THETA, dev)
+    lam = spectrum_2d(gb)
+    emax = float((lam[49] + lam[50]) / 2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dia_spmm_kernel.launches = 0
+    with no_csr_spmm():
+        feast_solve(rows, "phase 9", dev, card, f"gauge lowest 50 of {gb}^2",
+                    a_b, (0.0, emax), lam[:50], FeastParams(
+                        tol=1e-10, dims=(gb, gb), backend="multifrontal"),
+                    warm=1)
+    launches["dia_spmm complex"] = dia_spmm_kernel.launches
+    require(rows[-1]["routes"][0] == "dia"
+            and launches["dia_spmm complex"] >= 1,
+            f"gauge FEAST routes {rows[-1]['routes']}, dia_spmm launches "
+            f"{launches['dia_spmm complex']}")
+    del a_b
+    pipeline.clear_pipeline_cache()
+    torch.cuda.empty_cache()
+
+    # ---- (d) the permuted operator at grids[2]**2: the WELL route
+    gs = grids[2]
+    a_s, _ = permuted(gauge_kron(gs, THETA, dev), cgen)
+    lam = spectrum_2d(gs)
+    emax = float((lam[49] + lam[50]) / 2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    well_spmm.launches = 0
+    with no_csr_spmm():
+        feast_solve(rows, "phase 9", dev, card,
+                    f"permuted gauge lowest 50 of {gs}^2", a_s, (0.0, emax),
+                    lam[:50], FeastParams(tol=1e-10, backend="multifrontal"),
+                    warm=0, launches_of=well_spmm)
+    launches["well_spmm complex"] = well_spmm.launches
+    require(rows[-1]["routes"][0] == "well"
+            and launches["well_spmm complex"] >= 1,
+            f"permuted gauge FEAST routes {rows[-1]['routes']}, well_spmm "
+            f"launches {launches['well_spmm complex']}")
+    del a_s
+    pipeline.clear_pipeline_cache()
+    torch.cuda.empty_cache()
+    peak = max(r["peak_gb"] for r in rows)
+    print(f"phase 9 complex Hermitian: {time.perf_counter() - t_phase:.3f} s "
+          f"wall, launches {launches}, peak device memory {peak:.3f} GB (tol "
+          f"75)", flush=True)
+    require(peak < 75.0, f"phase 9 peak device memory {peak} GB")
+    return rows, launches, counts
+
+
 def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64)) -> list:
     """Phase 8: FEAST through ``eig.feast`` at full size: ``grids`` are the
     36,864-dof operator's, the 1,048,576-dof one's and the slicing one's.
@@ -577,10 +1193,8 @@ def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64)) -> list:
     import sparse_linear_tpu_torch as st
     from sparse_linear_tpu_torch.eig import pipeline
     from sparse_linear_tpu_torch.eig.feast import (
-        INFO_OK,
         FeastParams,
         count_eigenvalues,
-        eigsh,
         eigsh_sliced,
     )
     from sparse_linear_tpu_torch.kernels.spmv_dia import dia_spmm_kernel
@@ -596,81 +1210,10 @@ def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64)) -> list:
     torch.cuda.reset_peak_memory_stats(dev)
     dia_spmm_kernel.launches = 0
 
-    def timed(f):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = f()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    def errors(res, want, interval):
-        """(max |dlambda| / max(|emin|, |emax|, 1), max elementwise
-        relative error) against the analytic values."""
-        got = np.sort(np.asarray(res.values))
-        require(got.shape == want.shape,
-                f"found {got.shape[0]} pairs, expected {want.shape[0]}")
-        scale = max(abs(interval[0]), abs(interval[1]), 1.0)
-        d = np.abs(got - want)
-        return float(d.max() / scale), float((d / np.abs(want)).max())
-
     def solve(name, a, interval, want, params, warm=1, rel=False,
               launches_of=None):
-        before = None if launches_of is None else launches_of.launches
-        res, cold_s = timed(lambda: eigsh(80, interval, a, params))
-        split = {k: v for k, v in pipeline.last_run.items()}
-        warm_s = None
-        for _ in range(warm):
-            res = None
-            res, w = timed(lambda: eigsh(80, interval, a, params))
-            warm_s = w if warm_s is None else min(warm_s, w)
-        err, err_rel = errors(res, want, interval)
-        peak = torch.cuda.max_memory_allocated(dev) / 1e9
-        row = {"name": name, "n": a.shape[0], "m0": 80,
-               "interval": list(interval), "cold_s": cold_s,
-               "warm_s": warm_s, "loops": res.iterations,
-               "epsout": res.epsout, "n_found": res.n_found,
-               "info": res.info, "max_err_scaled": err,
-               "max_rel_err": err_rel, "mode": split["mode"],
-               "why": split["why"], "routes": list(split["routes"]),
-               "analyze_s": split["analyze_s"],
-               "factor_s": split["factor_s"], "split": split["loops"],
-               "peak_gb": peak}
-        if launches_of is not None:
-            row["launches"] = launches_of.launches - before
-        rows.append(row)
-        solves = sum(lp["solve_s"] for lp in split["loops"])
-        rr = sum(lp["rr_s"] for lp in split["loops"])
-        eighs = sum(lp["eigh_s"] for lp in split["loops"])
-        warm_txt = "" if warm_s is None else f", warm {warm_s:.3f} s"
-        print(f"phase 8 [{card}] {name}: n {a.shape[0]}, cold "
-              f"{cold_s:.3f} s{warm_txt}; {res.iterations} loops, "
-              f"{res.n_found} pairs, epsout {res.epsout:.3e}, info "
-              f"{res.info}; against the analytic spectrum {err:.3e} on the "
-              f"interval's scale, {err_rel:.3e} elementwise relative (tol "
-              f"1e-10); contour {split['mode']} ({split['why']}), routes "
-              f"{split['routes']}; cold split: analyze "
-              f"{split['analyze_s']:.3f} s, factor {split['factor_s']:.3f} s,"
-              f" solves {solves:.3f} s, Rayleigh-Ritz products {rr:.3f} s, "
-              f"host eighs {eighs:.3f} s over {len(split['loops'])} loops; "
-              f"peak {peak:.3f} GB", flush=True)
-        for i, lp in enumerate(split["loops"]):
-            ghosts = ", ".join(f"{v:.9f}: {r:.4e}" for v, r in lp["ghosts"])
-            print(f"phase 8 [{card}] {name} cold loop {i}: solves "
-                  f"{lp['solve_s']:.3f} s (streamed factors "
-                  f"{lp['factor_s']:.3f} s), products {lp['rr_s']:.3f} s, "
-                  f"eighs {lp['eigh_s']:.4f} s; {lp['genuine']} genuine "
-                  f"pairs at {lp['epsout']:.3e}, {lp['rejected']} spurious "
-                  f"rejected (Ritz value: residual {{{ghosts}}})", flush=True)
-        require(res.info == INFO_OK, f"{name}: info {res.info}")
-        require(res.epsout <= 1e-10, f"{name}: epsout {res.epsout}")
-        require(err <= 1e-10, f"{name}: eigenvalue error {err}")
-        if rel:
-            require(err_rel <= 1e-10, f"{name}: relative error {err_rel}")
-        vec = res.vectors
-        require(tuple(vec.shape) == (a.shape[0], res.n_found)
-                and vec.device.type == "cuda"
-                and bool(torch.isfinite(vec).all()), f"{name}: vectors")
-        return res
+        return feast_solve(rows, "phase 8", dev, card, name, a, interval,
+                           want, params, warm, rel, launches_of)
 
     # ---- 1. the 50 lowest pairs at 192**2 (bench.py:723-789)
     g = grids[0]
@@ -741,7 +1284,7 @@ def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64)) -> list:
     res, sliced_s = timed(lambda: eigsh_sliced(
         (0.0, emax_s), a_s, m0_max=64,
         params=FeastParams(tol=1e-10, dims=(gs, gs), backend="multifrontal")))
-    err, err_rel = errors(res, lam_s[:100], (0.0, emax_s))
+    err, err_rel = feast_errors(res, lam_s[:100], (0.0, emax_s))
     print(f"phase 8 [{card}] eigsh_sliced 100 lowest of {gs}^2, m0_max=64: "
           f"{res.n_found} pairs in {sliced_s:.3f} s, {res.iterations} loops "
           f"over the slices, worst residual {res.epsout:.3e}, against the "
@@ -886,6 +1429,7 @@ def main() -> None:
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
 
     # ------------------------------------------------ 3. kernel parity
+    t_parts = {"phase 3": time.perf_counter()}
     tol = {f32: 1e-5, f64: 1e-12}
     parity_abs = {}
 
@@ -964,7 +1508,9 @@ def main() -> None:
     del a32, a64, x, y, ref
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    t_parts["phase 3 dia_spmm"] = time.perf_counter()
     dia_spmm_parity(dev, fgen, random_dia, parity_abs)
+    t_parts["phase 3 well"] = time.perf_counter()
 
     # WELL kernels C (SpMV) and D (SpMM) against their plain versions
     def check_well_spmv(label, w, generator=wgen):
@@ -1095,6 +1641,12 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # the complex instantiations, from their own random stream
+    t_parts["phase 3 complex"] = time.perf_counter()
+    complex_parity(dev, torch.Generator(device=dev).manual_seed(
+        args.seed + 7), parity_abs)
+    t_parts["phase 4"] = time.perf_counter()
+
     # ------------------------------------------- 4. main path, full size
     g = 2048
     n = g * g
@@ -1141,6 +1693,7 @@ def main() -> None:
             f"power iteration lambda {lam} vs {lam_exact}")
 
     b = randn(n, f64)
+    b_phase4 = b.cpu()  # phase 9 turns it by the gauge phases
     t0 = time.perf_counter()
     res = cg(dia.__matmul__, b, tol=1e-10, maxiter=40_000)
     torch.cuda.synchronize()
@@ -1190,6 +1743,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ 5. times
+    t_parts["phase 5"] = time.perf_counter()
     flush_buf = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
 
     def samples_ms(f, reps=12):
@@ -1222,7 +1776,22 @@ def main() -> None:
                 statistics.median(lib) if lib else None)
 
     # outside the tensor cores (NVIDIA's data sheet, H100 SXM)
-    peak_flops = {f32: 67e12, f64: 34e12}
+    c64, c128 = torch.complex64, torch.complex128
+    peak_flops = {f32: 67e12, f64: 34e12, c64: 67e12, c128: 34e12}
+
+    def term_flops(dtype):
+        """Flops of one multiply-add term: 2, or 8 for complex (four real
+        fmas)."""
+        return 8 if dtype.is_complex else 2
+
+    def library_call(lib, x):
+        """(the library call on x, what it is), or (None, why) where torch
+        refuses it (as for a dtype cuSPARSE is not given)."""
+        try:
+            lib @ x
+        except (RuntimeError, NotImplementedError) as exc:
+            return None, f"torch refused it: {str(exc).splitlines()[0]}"
+        return (lambda: lib @ x), "cuSPARSE through torch.sparse_csr_tensor"
 
     def bound(nbytes, flops, dtype):
         """The least time the card could take: the larger of the bytes over
@@ -1357,28 +1926,31 @@ def main() -> None:
         m, item = xp.shape[0], w.vals.element_size()
         xc = xp.T.contiguous()
         xcm = xp.T  # (n, m) with column-major strides
+        lib_row, note = library_call(lib, xc)
+        lib_col, _ = library_call(lib, xcm)
         k_ms, p_ms, l_row = in_turns(lambda: well_spmm_planes_plain(w, xp),
-                                     lambda: well_spmm(w, xc),
-                                     lambda: lib @ xc)
-        l_col = median_ms(lambda: lib @ xcm)
+                                     lambda: well_spmm(w, xc), lib_row)
+        l_col = None if lib_col is None else median_ms(lib_col)
         planes_ms = median_ms(lambda: well_spmm_planes(w, xp))
         copy_ms = median_ms(lambda: xp.T.contiguous())
         a_bytes = w.cols.shape[0] * (item + 4) + w.slice_ptr.numel() * 8
         mbytes = a_bytes + (w.shape[0] + w.shape[1]) * m * item
         gather_ms = (a_bytes + w.cols.shape[0] * m * item
                      + w.shape[0] * m * item) / HBM_BYTES_PER_S * 1e3
-        record(name, w.dtype, k_ms, p_ms, min(l_row, l_col), mbytes,
-               2 * nnz * m,
+        libs = [v for v in (l_row, l_col) if v is not None]
+        record(name, w.dtype, k_ms, p_ms, min(libs) if libs else None,
+               mbytes, term_flops(w.dtype) * nnz * m,
                f"torch.sparse_csr_tensor @ X (cuSPARSE SpMM), X (n, {m}) "
-               f"{'row' if l_row <= l_col else 'column'}-major, the faster")
+               f"{'row' if l_col is None or l_row <= l_col else 'column'}"
+               f"-major, the faster" if libs else note)
         t = times[f"{name} {w.dtype}"]
         t.update(planes_ms=planes_ms, copy_ms=copy_ms,
                  case=f"{label} m={m} {w.dtype}")
         print(f"phase 5 well_spmm {label} {w.dtype} m={m}: well_spmm_planes (X "
               f"copied to (nc, m), then kernel D) {planes_ms:.4f} ms, of "
               f"which the copy alone {copy_ms:.4f} ms; "
-              f"library X row-major {l_row:.4f} ms, column-major "
-              f"{l_col:.4f} ms; {mbytes / 1e6:.1f} MB per call; gather "
+              f"library X row-major {l_row}, column-major {l_col} ms "
+              f"({note}); {mbytes / 1e6:.1f} MB per call; gather "
               f"floor (X once a slot) {gather_ms:.4f} ms", flush=True)
         return t
 
@@ -1505,7 +2077,105 @@ def main() -> None:
         del w, lib_s, xp
         torch.cuda.empty_cache()
 
+    t_parts["phase 5 complex"] = time.perf_counter()
+    # the complex instantiations, on phase 9's operators: kernel A on the
+    # gauge operator at 2048**2, its multi-RHS form at 1024**2 and m = 80
+    # (FEAST's shape), kernels C and D on the gauge operator permuted at
+    # 2048**2 (D at m = 16, and at m = 80 in c128 under two geometries);
+    # bytes at the complex item size, 8 flops a complex term
+    cgen = torch.Generator(device=dev).manual_seed(args.seed + 8)
+
+    def crandn(shape, dtype):
+        return torch.randn(shape, dtype=dtype, device=dev, generator=cgen)
+
+    gauge = gauge_kron(g, THETA, dev)
+    pgauge, _ = permuted(gauge, cgen)
+    for dtype in (c64, c128):
+        csr = gauge.map_values(lambda v: v.to(dtype))
+        a, lib_a, nnz = csr_to_dia(csr), library_csr(csr), csr.nnz
+        del csr
+        item = a.data.element_size()
+        x = crandn(n, dtype)
+        lib_call, note = library_call(lib_a, x)
+        k_ms, p_ms, l_ms = in_turns(lambda: dia_spmv(a, x),
+                                    lambda: dia_spmv_kernel(a, x), lib_call)
+        record("dia_spmv", dtype, k_ms, p_ms, l_ms,
+               (len(a.offsets) + 2) * n * item, 8 * nnz,
+               f"torch.sparse_csr_tensor @ x (cuSPARSE SpMV), gauge "
+               f"operator ({note})")
+        del a, lib_a, x
+        g_s, m = 1024, 80
+        n_s = g_s * g_s
+        csr = gauge_kron(g_s, THETA, dev).map_values(lambda v: v.to(dtype))
+        a, lib_a, nnz = csr_to_dia(csr), library_csr(csr), csr.nnz
+        del csr
+        x = crandn((n_s, m), dtype)
+        xp = x.T.contiguous()
+        lib_call, note = library_call(lib_a, x)
+        nbytes = (len(a.offsets) * n_s + 2 * n_s * m) * item
+        k_ms, p_ms, l_ms = in_turns(lambda: dia_spmm(a, x),
+                                    lambda: dia_spmm_kernel(a, x), lib_call)
+        kp_ms, pp_ms, _ = in_turns(lambda: dia_spmm_planes(a, xp),
+                                   lambda: dia_spmm_planes_kernel(a, xp))
+        record("dia_spmm", dtype, k_ms, p_ms, l_ms, nbytes, 8 * nnz * m,
+               f"torch.sparse_csr_tensor @ X (cuSPARSE SpMM), X (n, {m}) "
+               f"row-major ({note})")
+        b_ms = times[f"dia_spmm {dtype}"]["bound_ms"]
+        print(f"phase 5 time [{card}] dia_spmm gauge {g_s}^2 {dtype} m={m}: "
+              f"plane-major {kp_ms:.4f} ms ({b_ms / kp_ms:.1%} of the bound; "
+              f"plain {pp_ms:.4f} ms)", flush=True)
+        del a, lib_a, x, xp
+        csr = pgauge.map_values(lambda v: v.to(dtype))
+        w, lib_c, nnz = st.csr_to_well(csr), library_csr(csr), csr.nnz
+        del csr
+        a_bytes = w.cols.shape[0] * (item + 4) + w.slice_ptr.numel() * 8
+        x = crandn(n, dtype)
+        lib_call, note = library_call(lib_c, x)
+        k_ms, p_ms, l_ms = in_turns(lambda: well_spmv_plain(w, x),
+                                    lambda: well_spmv(w, x), lib_call)
+        record("well_spmv", dtype, k_ms, p_ms, l_ms, a_bytes + 2 * n * item,
+               8 * nnz, f"torch.sparse_csr_tensor @ x (cuSPARSE SpMV), "
+               f"permuted gauge operator ({note})")
+        del x
+        time_spmm("well_spmm", "permuted gauge", w, lib_c, nnz,
+                  crandn((m_rhs, n), dtype))
+        if dtype == c128:
+            # five chunks a lane (the plan at m = 80) spill 20 bytes under
+            # -Xptxas -v at 128 registers; four do not: both, in turns
+            time_spmm(f"well_spmm m={m_wide}", "permuted gauge", w, lib_c,
+                      nnz, crandn((m_wide, n), dtype))
+            xc = crandn((n, m_wide), dtype)
+
+            def run():
+                return well_spmm(w, xc)
+
+            def run_other():
+                with geometry(8, 4):
+                    return run()
+
+            chosen = spmv_well_module._spmm_plan(m_wide, 16, True, False)
+            same = torch.equal(run(), run_other())
+            t_a = samples_ms(run)
+            t_b = samples_ms(run_other) + samples_ms(run_other)
+            t_a += samples_ms(run)
+            print(f"phase 5 geometry [{card}] well_spmm column-major {dtype} "
+                  f"m={m_wide}: _spmm_plan (lanes, chunks) {chosen} "
+                  f"{statistics.median(t_a):.4f} ms, (8, 4) "
+                  f"{statistics.median(t_b):.4f} ms, bitwise equal {same}",
+                  flush=True)
+            require(same, "complex kernel D differs between geometries")
+            del xc
+        del w, lib_c
+        torch.cuda.empty_cache()
+    del gauge, pgauge
+    torch.cuda.empty_cache()
+
     # ------------------------------------ 6. slice-2 main path, full size
+    t_parts["phase 6"] = time.perf_counter()
+    marks = list(t_parts.items())
+    print("phases 3-5 wall: " + ", ".join(
+        f"{name} {t1 - t0:.1f} s" for (name, t0), (_, t1)
+        in zip(marks, marks[1:])), flush=True)
     torch.cuda.reset_peak_memory_stats(dev)
     well_spmv.launches = 0
     well_spmm.launches = 0
@@ -1615,9 +2285,15 @@ def main() -> None:
     feast = feast_phase(dev, card, args.seed)
     launches["dia_spmm"] = dia_spmm_kernel.launches
 
-    def entry_of(name, dtype, replaces, launches_of, err, shape, also=()):
+    # --------------------------------------- 9. complex Hermitian, full size
+    complex_rows, complex_launches, _ = complex_phase(
+        dev, card, args.seed, b_phase4, cg_its, well_its)
+    launches.update(complex_launches)
+
+    def entry_of(name, dtype, replaces, launches_of, err, shape, also=(),
+                 label=None):
         t = times[f"{name} {dtype}"]
-        out = {"name": name, "route": "cuda",
+        out = {"name": label or name, "route": "cuda",
                "source": SPMV_SOURCE if name.startswith("dia") else
                WELL_SOURCE, "replaces": replaces}
         if also:
@@ -1652,7 +2328,7 @@ def main() -> None:
         (f"{XLA_SPMV}:68",))
     spmm_dia_entry["readings"] = dia_spmm_readings
 
-    print(json.dumps({"feast": feast, "card": card}))
+    print(json.dumps({"feast": feast + complex_rows, "card": card}))
     print(json.dumps({"direct": direct, "card": card}))
     print(json.dumps({"kernels": [
         entry_of("dia_spmv", f32, f"{PALLAS}:133", "dia_spmv",
@@ -1667,6 +2343,30 @@ def main() -> None:
                  (f"{PALLAS_WELL64}:195",)),
         spmm_entry,
         spmm_dia_entry,
+        entry_of("dia_spmv", c128, f"{XLA_SPMV}:29", "dia_spmv complex",
+                 parity_abs[f"dia_spmv gauge 2048^2 {c128}"],
+                 "gauge operator 2048^2 c128, L2 flushed; launches from "
+                 "phase 9's DIA CG; the JAX package runs complex DIA through "
+                 "this XLA form, not a pallas_call", label="dia_spmv_c128"),
+        entry_of("dia_spmm", c128, f"{XLA_SPMV}:45", "dia_spmm complex",
+                 max(v for k, v in parity_abs.items()
+                     if k.startswith("dia_spmm") and k.endswith(str(c128))),
+                 "gauge operator 1024^2 c128, m=80 column-major X (FEAST's "
+                 "shape), L2 flushed; launches from phase 9's 1M-dof FEAST",
+                 (f"{XLA_SPMV}:68",), label="dia_spmm_c128"),
+        entry_of("well_spmv", c128, f"{PALLAS_WELL}:116", "well_spmv complex",
+                 parity_abs[f"well_spmv permuted gauge 2048^2 {c128}"],
+                 "permuted gauge operator 2048^2 c128, L2 flushed; launches "
+                 "from phase 9's WELL CG (the JAX package: real plane "
+                 "passes of this kernel)", (f"{PALLAS_WELL}:515",),
+                 label="well_spmv_c128"),
+        entry_of("well_spmm", c128, f"{PALLAS_WELL}:335", "well_spmm complex",
+                 parity_abs[f"well_spmm permuted gauge 2048^2 m=16 {c128}"],
+                 "permuted gauge operator 2048^2 c128, m=16, kernel D alone "
+                 "(column-major X), L2 flushed; launches from phase 9's "
+                 "192^2 WELL-route FEAST",
+                 (f"{PALLAS_WELL}:385", f"{PALLAS_WELL}:515"),
+                 label="well_spmm_c128"),
     ], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -100,6 +100,21 @@
 // x[i + off_d] (both coalesced), with alpha fused into the store.  Shared
 // memory x tiles and L2 reuse across steps are later work.
 //
+// Complex values.  Kernel A and its multi-RHS form are also instantiated
+// for complex64 and complex128, stored as float2 / double2 (the layout of a
+// torch complex tensor: real part, then imaginary).  Every term is one
+// cfma, the same four real fmas in the same order (fma_t below), so the
+// multi-RHS form's column t is still bitwise kernel A on column t; alpha
+// stays real and scales both parts.  A vector access is still 16 bytes:
+// two complex64 values or one complex128.  What bounds them is still bytes:
+// a complex entry is 8 flops against twice the bytes of a real one, far
+// below the card's balance point.  The column-major form's registers per
+// 16-byte chunk are those of the real types (a chunk holds fewer columns),
+// so the wrapper's chunk cap is the same; a complex128 tile staged for two
+// rows a thread at one lane a row would take 64 KB of static shared
+// memory, so that geometry takes one row a thread (spmm_rows).  Kernel B
+// stays real: no main path chains a complex operator.
+//
 // The kernels launch on the caller's stream, allocate nothing, and return
 // cudaGetLastError() after the launch (0 on success).
 
@@ -123,6 +138,34 @@ constexpr int kTwoRowChunks = 2;
 constexpr int kDiagChunk = 8;        // dia_spmm: diagonals staged at a time
 constexpr int kMaxDevices = 64;
 
+// The element types: float, double, and complex64 / complex128 as float2 /
+// double2.  Part<T> is the type of one part of T, and of alpha.
+template <typename T>
+struct Part {
+  using type = T;
+};
+template <>
+struct Part<float2> {
+  using type = float;
+};
+template <>
+struct Part<double2> {
+  using type = double;
+};
+
+template <typename T>
+__device__ __forceinline__ T zero_t() {
+  return T(0);
+}
+template <>
+__device__ __forceinline__ float2 zero_t<float2>() {
+  return make_float2(0.0f, 0.0f);
+}
+template <>
+__device__ __forceinline__ double2 zero_t<double2>() {
+  return make_double2(0.0, 0.0);
+}
+
 // a * b + c rounded once: the one fma of every term of kernel A and of its
 // multi-RHS form (written out, so that no two loops contract differently)
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
@@ -131,6 +174,31 @@ __device__ __forceinline__ float fma_t(float a, float b, float c) {
 __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return fma(a, b, c);
 }
+// complex a * b + c (cfma): always these four real fmas in this order
+__device__ __forceinline__ float2 fma_t(float2 a, float2 b, float2 c) {
+  c.x = fmaf(a.x, b.x, c.x);
+  c.x = fmaf(-a.y, b.y, c.x);
+  c.y = fmaf(a.x, b.y, c.y);
+  c.y = fmaf(a.y, b.x, c.y);
+  return c;
+}
+__device__ __forceinline__ double2 fma_t(double2 a, double2 b, double2 c) {
+  c.x = fma(a.x, b.x, c.x);
+  c.x = fma(-a.y, b.y, c.x);
+  c.y = fma(a.x, b.y, c.y);
+  c.y = fma(a.y, b.x, c.y);
+  return c;
+}
+
+// alpha * v for a real alpha: both parts of a complex v
+__device__ __forceinline__ float scale_t(float a, float v) { return a * v; }
+__device__ __forceinline__ double scale_t(double a, double v) { return a * v; }
+__device__ __forceinline__ float2 scale_t(float a, float2 v) {
+  return make_float2(a * v.x, a * v.y);
+}
+__device__ __forceinline__ double2 scale_t(double a, double2 v) {
+  return make_double2(a * v.x, a * v.y);
+}
 
 // One output row of kernel A.  No thread writes x during the launch.
 template <typename T>
@@ -138,7 +206,7 @@ __device__ __forceinline__ T dia_row(const T* __restrict__ data,
                                      const int64_t* __restrict__ offsets,
                                      const T* x, int64_t ndiag, int64_t nr,
                                      int64_t nc, int64_t i) {
-  T acc = T(0);
+  T acc = zero_t<T>();
   for (int64_t d = 0; d < ndiag; ++d) {
     const int64_t j = i + __ldg(offsets + d);
     if (j >= 0 && j < nc) acc = fma_t(__ldg(data + d * nr + i), x[j], acc);
@@ -150,11 +218,12 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dia_spmv_kernel(const T* __restrict__ data,
                     const int64_t* __restrict__ offsets, const T* x, T* y,
-                    int64_t ndiag, int64_t nr, int64_t nc, T alpha) {
+                    int64_t ndiag, int64_t nr, int64_t nc,
+                    typename Part<T>::type alpha) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < nr; i += stride) {
-    y[i] = alpha * dia_row(data, offsets, x, ndiag, nr, nc, i);
+    y[i] = scale_t(alpha, dia_row(data, offsets, x, ndiag, nr, nc, i));
   }
 }
 
@@ -180,6 +249,19 @@ struct Vec<float, 4> {
   }
   __device__ static void store(float* p, const float (&v)[4]) {
     __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+};
+
+template <>
+struct Vec<float2, 2> {
+  __device__ static void load(const float2* p, float2 (&v)[2]) {
+    const float4 d = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = make_float2(d.x, d.y);
+    v[1] = make_float2(d.z, d.w);
+  }
+  __device__ static void store(float2* p, const float2 (&v)[2]) {
+    __stcs(reinterpret_cast<float4*>(p),
+           make_float4(v[0].x, v[0].y, v[1].x, v[1].y));
   }
 };
 
@@ -235,23 +317,29 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ data,
   __syncthreads();
 }
 
-// Rows a thread of the column-major dia_spmm takes at C chunks a lane.
-template <int C>
+// Rows a thread of the column-major dia_spmm takes at C chunks a lane of G
+// lanes a row: two at one or two chunks, one past that, and one where two
+// rows' staged tile would pass 32 KB of static shared memory (complex128
+// at one lane a row).
+template <typename T, int G, int C>
 __host__ __device__ constexpr int spmm_rows() {
-  return C <= kTwoRowChunks ? 2 : 1;
+  return C <= kTwoRowChunks &&
+                 kDiagChunk * 2 * (kSpmmThreads / G) * sizeof(T) <= 32768
+             ? 2
+             : 1;
 }
 
 // Column-major dia_spmm: X (nc, m), Y (nr, m), both row-major.  A group of
 // G lanes takes a row, V values a lane (V > 1: one 16-byte vector; then
 // m % V == 0 and X and Y are 16-byte aligned), C chunks of G * V columns a
-// pass over m; a thread takes Q = spmm_rows<C>() rows, P rows apart.
+// pass over m; a thread takes Q = spmm_rows<T, G, C>() rows, P rows apart.
 template <typename T, int V, int G, int C>
 __global__ void __launch_bounds__(kSpmmThreads)
     dia_spmm_kernel(const T* __restrict__ data,
                     const int64_t* __restrict__ offsets,
                     const T* __restrict__ x, T* __restrict__ y, int64_t ndiag,
                     int64_t nr, int64_t nc, int64_t m) {
-  constexpr int Q = spmm_rows<C>();
+  constexpr int Q = spmm_rows<T, G, C>();
   constexpr int P = kSpmmThreads / G;  // rows a pass of the block
   constexpr int R = P * Q;             // rows a tile
   constexpr int W = G * V;             // columns a chunk
@@ -279,7 +367,7 @@ __global__ void __launch_bounds__(kSpmmThreads)
 #pragma unroll
         for (int c = 0; c < C; ++c) {
 #pragma unroll
-          for (int v = 0; v < V; ++v) acc[q][c][v] = T(0);
+          for (int v = 0; v < V; ++v) acc[q][c][v] = zero_t<T>();
         }
       }
       for (int64_t d0 = 0; d0 < ndiag; d0 += kDiagChunk) {
@@ -358,7 +446,7 @@ __global__ void __launch_bounds__(kSpmmThreads)
       const T* xt = x + t0 * nc;
       T acc[TP];
 #pragma unroll
-      for (int p = 0; p < TP; ++p) acc[p] = T(0);
+      for (int p = 0; p < TP; ++p) acc[p] = zero_t<T>();
       for (int64_t d0 = 0; d0 < ndiag; d0 += kDiagChunk) {
         const int dn = static_cast<int>(
             ndiag - d0 < kDiagChunk ? ndiag - d0 : kDiagChunk);
@@ -483,7 +571,7 @@ int launch_spmv(const void* data, const void* offsets, const void* x, void* y,
   dia_spmv_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(data), static_cast<const int64_t*>(offsets),
       static_cast<const T*>(x), static_cast<T*>(y), ndiag, nr, nc,
-      static_cast<T>(alpha));
+      static_cast<typename Part<T>::type>(alpha));
   return cudaGetLastError();
 }
 
@@ -532,7 +620,8 @@ int launch_spmm_as(const void* data, const void* offsets, const void* x,
                    long long m, int device, void* stream) {
   static std::atomic<long long> kept[kMaxDevices];  // 0s
   return launch_tiles<T>(dia_spmm_kernel<T, V, G, C>, kept,
-                         spmm_rows<C>() * (kSpmmThreads / G), data, offsets,
+                         spmm_rows<T, G, C>() * (kSpmmThreads / G), data,
+                         offsets,
                          x, y,
                          ndiag, nr, nc, m, device, stream);
 }
@@ -549,7 +638,8 @@ int launch_planes_as(const void* data, const void* offsets, const void* x,
 
 // The wrapper chooses the geometry (spmv_dia._dia_spmm_plan).  Column-major:
 // vector lanes take G in {1, 2, 4, 8} with one chunk or G = 8 with two to
-// four; scalar lanes one chunk of G in {1, ..., 128 / itemsize}.
+// four; scalar lanes one chunk of G in {1, ..., 128 / itemsize}.  A vector
+// is 16 bytes: four floats, two doubles or complex64s, one complex128.
 // Plane-major: lanes 1, TP = chunks in {1, 2, 4} planes at a time.
 template <typename T>
 int launch_spmm(const void* data, const void* offsets, const void* x, void* y,
@@ -590,7 +680,9 @@ int launch_spmm(const void* data, const void* offsets, const void* x, void* y,
       case 2: SLT_SPMM(1, 2, 1);
       case 4: SLT_SPMM(1, 4, 1);
       case 8: SLT_SPMM(1, 8, 1);
-      case 16: SLT_SPMM(1, 16, 1);
+      case 16:
+        if constexpr (sizeof(T) <= 8) SLT_SPMM(1, 16, 1);
+        break;
       case 32:
         if constexpr (sizeof(T) == 4) SLT_SPMM(1, 32, 1);
     }
@@ -694,6 +786,36 @@ int slt_dia_spmm_f64(const void* data, const void* offsets, const void* x,
                      int device, void* stream) {
   return launch_spmm<double>(data, offsets, x, y, ndiag, nr, nc, m, planes,
                              vec, lanes, chunks, device, stream);
+}
+
+int slt_dia_spmv_c64(const void* data, const void* offsets, const void* x,
+                     void* y, long long ndiag, long long nr, long long nc,
+                     double alpha, int device, void* stream) {
+  return launch_spmv<float2>(data, offsets, x, y, ndiag, nr, nc, alpha, device,
+                             stream);
+}
+
+int slt_dia_spmv_c128(const void* data, const void* offsets, const void* x,
+                      void* y, long long ndiag, long long nr, long long nc,
+                      double alpha, int device, void* stream) {
+  return launch_spmv<double2>(data, offsets, x, y, ndiag, nr, nc, alpha,
+                              device, stream);
+}
+
+int slt_dia_spmm_c64(const void* data, const void* offsets, const void* x,
+                     void* y, long long ndiag, long long nr, long long nc,
+                     long long m, int planes, int vec, int lanes, int chunks,
+                     int device, void* stream) {
+  return launch_spmm<float2>(data, offsets, x, y, ndiag, nr, nc, m, planes,
+                             vec, lanes, chunks, device, stream);
+}
+
+int slt_dia_spmm_c128(const void* data, const void* offsets, const void* x,
+                      void* y, long long ndiag, long long nr, long long nc,
+                      long long m, int planes, int vec, int lanes, int chunks,
+                      int device, void* stream) {
+  return launch_spmm<double2>(data, offsets, x, y, ndiag, nr, nc, m, planes,
+                              vec, lanes, chunks, device, stream);
 }
 
 int slt_dia_chain_f32(const void* data, const void* offsets, const void* x,

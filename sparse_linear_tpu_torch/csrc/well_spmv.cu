@@ -80,6 +80,18 @@
 // 0.311 ms.)  Sorting rows by length (SELL-C-sigma) and shared-memory x
 // tiles are later work.
 //
+// Complex values.  Both kernels are also instantiated for complex64 and
+// complex128, stored as float2 / double2 (the layout of a torch complex
+// tensor).  Every term is one cfma, the same four real fmas in the same
+// order (fma_t below), in kernel C and in kernel D alike, so column t of
+// kernel D is still bitwise kernel C on column t.  A vector access stays 16
+// bytes (two complex64 values or one complex128), so kernel D's registers
+// per chunk are those of the real types; a staged complex128 slot is one
+// 16-byte cp.async, which doubles f64's staging footprint (kMaxStage slots
+// of 16 + 4 bytes a lane).  The JAX package runs a complex WELL as real
+// plane passes of its Pallas kernels; here one pass reads the complex
+// values once.
+//
 // Both kernels launch on the caller's stream, allocate nothing, and return
 // cudaGetLastError() after the launch (0 on success).
 
@@ -98,6 +110,45 @@ constexpr int kStagePad = kSlice + 1;  // Y stage row stride (no bank clash)
 constexpr int kMaxStage = 32;  // kernel D: most slots a row staged at a time
 constexpr int kMaxDevices = 64;
 
+// The element types: float, double, and complex64 / complex128 as float2 /
+// double2.
+template <typename T>
+__device__ __forceinline__ T zero_t() {
+  return T(0);
+}
+template <>
+__device__ __forceinline__ float2 zero_t<float2>() {
+  return make_float2(0.0f, 0.0f);
+}
+template <>
+__device__ __forceinline__ double2 zero_t<double2>() {
+  return make_double2(0.0, 0.0);
+}
+
+// a * b + c rounded once: the one fma of every slot of kernels C and D
+// (written out, so that the two kernels cannot contract differently)
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+// complex a * b + c (cfma): always these four real fmas in this order
+__device__ __forceinline__ float2 fma_t(float2 a, float2 b, float2 c) {
+  c.x = fmaf(a.x, b.x, c.x);
+  c.x = fmaf(-a.y, b.y, c.x);
+  c.y = fmaf(a.x, b.y, c.y);
+  c.y = fmaf(a.y, b.x, c.y);
+  return c;
+}
+__device__ __forceinline__ double2 fma_t(double2 a, double2 b, double2 c) {
+  c.x = fma(a.x, b.x, c.x);
+  c.x = fma(-a.y, b.y, c.x);
+  c.y = fma(a.x, b.y, c.y);
+  c.y = fma(a.y, b.x, c.y);
+  return c;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     well_spmv_kernel(const int64_t* __restrict__ slice_ptr,
@@ -111,7 +162,7 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t begin = __ldg(slice_ptr + s);
     const int64_t width = (__ldg(slice_ptr + s + 1) - begin) / kSlice;
     const int64_t base = begin + i % kSlice;
-    T acc = T(0);
+    T acc = zero_t<T>();
     for (int64_t k0 = 0; k0 < width; k0 += kBatch) {
       int32_t c[kBatch];
       T v[kBatch];
@@ -129,7 +180,7 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int j = 0; j < kBatch; ++j) {
-        if (k0 + j < width) acc += v[j] * xv[j];
+        if (k0 + j < width) acc = fma_t(v[j], xv[j], acc);
       }
     }
     __stcs(y + i, acc);
@@ -186,6 +237,24 @@ struct Run<double, 2> {
   }
   __device__ static void store(double* p, const double (&v)[2]) {
     __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+  }
+};
+
+template <>
+struct Run<float2, 2> {
+  __device__ static void load(const float2* p, float2 (&v)[2]) {
+    const float4 d = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = make_float2(d.x, d.y);
+    v[1] = make_float2(d.z, d.w);
+  }
+  __device__ static void reload(const float2* p, float2 (&v)[2]) {
+    const float4 d = *reinterpret_cast<const float4*>(p);
+    v[0] = make_float2(d.x, d.y);
+    v[1] = make_float2(d.z, d.w);
+  }
+  __device__ static void store(float2* p, const float2 (&v)[2]) {
+    __stcs(reinterpret_cast<float4*>(p),
+           make_float4(v[0].x, v[0].y, v[1].x, v[1].y));
   }
 };
 
@@ -273,7 +342,8 @@ __global__ void __launch_bounds__(kSpmmWarps * kSlice)
         if (planes && !first) {  // this round continues the sums in Y
           for (int j = 0; j < nt; ++j) {
             sy[j * kStagePad + lane] =
-                row0 + lane < nr ? y[(t0 + j) * y_rhs + row0 + lane] : T(0);
+                row0 + lane < nr ? y[(t0 + j) * y_rhs + row0 + lane]
+                                 : zero_t<T>();
           }
           __syncwarp();
         }
@@ -283,7 +353,7 @@ __global__ void __launch_bounds__(kSpmmWarps * kSlice)
 #pragma unroll
           for (int c = 0; c < C; ++c) {
 #pragma unroll
-            for (int v = 0; v < V; ++v) acc[c][v] = T(0);
+            for (int v = 0; v < V; ++v) acc[c][v] = zero_t<T>();
             const int col = c * W + tv;
             if (!first && col < nt) {
               if (planes) {
@@ -321,7 +391,7 @@ __global__ void __launch_bounds__(kSpmmWarps * kSlice)
                   if (c * W + tv < nt) {
 #pragma unroll
                     for (int v = 0; v < V; ++v) {
-                      acc[c][v] += vv[j] * xv[j][c][v];
+                      acc[c][v] = fma_t(vv[j], xv[j][c][v], acc[c][v]);
                     }
                   }
                 }
@@ -455,7 +525,8 @@ int launch_spmm_as(const void* slice_ptr, const void* cols, const void* vals,
 // The wrapper chooses the geometry (spmv_well._spmm_plan): vector or
 // scalar lanes, G lanes a row and C chunks a lane.  Vector lanes take
 // G in {1, 2, 4} with one chunk or G = 8 with one to five; scalar lanes
-// one chunk of G in {1, ..., 128 / itemsize}.
+// one chunk of G in {1, ..., 128 / itemsize}.  A vector is 16 bytes: four
+// floats, two doubles or complex64s, one complex128.
 template <typename T>
 int launch_spmm(const void* slice_ptr, const void* cols, const void* vals,
                 const void* x, void* y, long long nr, long long m,
@@ -486,7 +557,9 @@ int launch_spmm(const void* slice_ptr, const void* cols, const void* vals,
       case 2: SLT_SPMM(1, 2, 1);
       case 4: SLT_SPMM(1, 4, 1);
       case 8: SLT_SPMM(1, 8, 1);
-      case 16: SLT_SPMM(1, 16, 1);
+      case 16:
+        if constexpr (sizeof(T) <= 8) SLT_SPMM(1, 16, 1);
+        break;
       case 32:
         if constexpr (sizeof(T) == 4) SLT_SPMM(1, 32, 1);
     }
@@ -527,6 +600,36 @@ int slt_well_spmm_f64(const void* slice_ptr, const void* cols,
                       void* stream) {
   return launch_spmm<double>(slice_ptr, cols, vals, x, y, nr, m, y_row,
                              y_rhs, vec, lanes, chunks, ks, device, stream);
+}
+
+int slt_well_spmv_c64(const void* slice_ptr, const void* cols,
+                      const void* vals, const void* x, void* y, long long nr,
+                      int device, void* stream) {
+  return launch_spmv<float2>(slice_ptr, cols, vals, x, y, nr, device, stream);
+}
+
+int slt_well_spmv_c128(const void* slice_ptr, const void* cols,
+                       const void* vals, const void* x, void* y, long long nr,
+                       int device, void* stream) {
+  return launch_spmv<double2>(slice_ptr, cols, vals, x, y, nr, device, stream);
+}
+
+int slt_well_spmm_c64(const void* slice_ptr, const void* cols,
+                      const void* vals, const void* x, void* y, long long nr,
+                      long long m, long long y_row, long long y_rhs, int vec,
+                      int lanes, int chunks, int ks, int device,
+                      void* stream) {
+  return launch_spmm<float2>(slice_ptr, cols, vals, x, y, nr, m, y_row, y_rhs,
+                             vec, lanes, chunks, ks, device, stream);
+}
+
+int slt_well_spmm_c128(const void* slice_ptr, const void* cols,
+                       const void* vals, const void* x, void* y, long long nr,
+                       long long m, long long y_row, long long y_rhs, int vec,
+                       int lanes, int chunks, int ks, int device,
+                       void* stream) {
+  return launch_spmm<double2>(slice_ptr, cols, vals, x, y, nr, m, y_row,
+                              y_rhs, vec, lanes, chunks, ks, device, stream);
 }
 
 }  // extern "C"

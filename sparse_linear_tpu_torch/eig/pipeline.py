@@ -90,8 +90,19 @@ last_run: dict = {}
 
 def clear_pipeline_cache() -> None:
     """Drop every cached pipeline (symbolic analyses, structured operators
-    and the factor sets, which hold GBs of device memory at 1M dof)."""
-    _PIPELINE_CACHE.clear()
+    and the factor sets, which hold GBs of device memory at 1M dof).  The
+    device memory is free when this returns: see :func:`_drop`."""
+    while _PIPELINE_CACHE:
+        _drop(_PIPELINE_CACHE.popitem()[1])
+
+
+def _drop(pipe) -> None:
+    """Release a pipeline's factor sets now.  A contour refers to its
+    pipeline and the pipeline to its contours; without this, dropping the
+    pipeline leaves the cycle, and the factors on the card, to Python's
+    cycle collector, whenever it runs (a second 1M-dof FEAST then found
+    48 GB still held and planned its contour as if they were in use)."""
+    pipe.contours.clear()
 
 
 def _fingerprint(mat) -> tuple:
@@ -121,52 +132,43 @@ class StructuredOp:
     Precondition: it computes M X and only that.  It does not assume M
     symmetric, so Rayleigh-Ritz forms X^H (M X) in that order; the JAX
     package's plane-major ``rr_blocks`` formed (M X)^T X, which equals
-    X^T M X only for a symmetric M (``real_pipeline.py:357-371``).  A
-    complex X on a real M runs as the real (ncols, 2m) block
-    ``torch.view_as_real(X)``, so the real kernels serve the complex
-    contour solutions too.
+    X^T M X only for a symmetric M (``real_pipeline.py:357-371``).
 
     ``route``: "identity" (no product), "dia" (kernel A's multi-RHS form,
-    ``dia_spmm_kernel``), "well" (kernel D, ``well_spmm``, f32 and f64:
-    every other real operator, long padded rows included) or "csr"
-    (``ops.linalg.spmm``: complex operators only, whose DIA/WELL kernels
-    are ROADMAP.md queue 1 item 10)."""
+    ``dia_spmm_kernel``: every banded operator) or "well" (kernel D,
+    ``well_spmm``: every other one, long padded rows included), real and
+    complex alike.  A complex X on a real M runs the real kernel on the
+    (ncols, 2m) block ``torch.view_as_real(X)`` inside the wrapper; a
+    complex M runs the complex kernel."""
 
-    def __init__(self, route: str, fn=None, real: bool = True):
+    def __init__(self, route: str, fn=None):
         self.route = route
         self.fn = fn
-        self.real = real
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if self.route == "identity":
             return x
-        if self.real and x.is_complex():
-            n, m = x.shape
-            xr = torch.view_as_real(x.resolve_conj().contiguous())
-            y = self.fn(xr.reshape(n, 2 * m))
-            return torch.view_as_complex(y.reshape(-1, m, 2).contiguous())
         return self.fn(x)
 
 
 def _structured_op(mat) -> StructuredOp:
-    """The operator's route, chosen once (``real_pipeline.py:106-185``).
-    The JAX BSR route for f64 exists because the TPU emulates f64, and
-    kernel D in f64 takes its place.  The reference's 1/64 WELL fill floor
-    is a TPU capacity choice: kernel D computes any WELL, so a real
-    operator that is not banded always runs on it."""
+    """The operator's route, chosen once (``real_pipeline.py:106-185``):
+    a banded operator (at most 64 diagonals) to DIA, any other to WELL,
+    real or complex.  The JAX BSR route for f64 and complex exists because
+    the TPU emulates f64, and kernel D in f64, complex64 or complex128
+    takes its place.  The reference's 1/64 WELL fill floor is a TPU
+    capacity choice: kernel D computes any WELL, so an operator that is not
+    banded always runs on it."""
     from sparse_linear_tpu_torch.eig.feast import _is_identity
     from sparse_linear_tpu_torch.formats.structured import csr_to_dia
     from sparse_linear_tpu_torch.formats.well import csr_to_well
     from sparse_linear_tpu_torch.kernels.spmv_dia import dia_spmm_kernel
     from sparse_linear_tpu_torch.kernels.spmv_well import well_spmm
     from sparse_linear_tpu_torch.ops.build import trim
-    from sparse_linear_tpu_torch.ops.linalg import spmm
 
     if _is_identity(mat):
         return StructuredOp("identity")
     csr = trim(mat.tocsr())
-    if csr.dtype.is_complex:
-        return StructuredOp("csr", lambda x: spmm(csr, x), real=False)
     try:
         dia = csr_to_dia(csr, max_diags=64)
     except ValueError:
@@ -383,7 +385,7 @@ def _get_pipeline(mat_a, mat_b, backend, dims):
         return pipe, False
     pipe = _Pipeline(mat_a, mat_b, backend, dims)
     if len(_PIPELINE_CACHE) >= _PIPELINE_CACHE_MAX:
-        _PIPELINE_CACHE.pop(next(iter(_PIPELINE_CACHE)))
+        _drop(_PIPELINE_CACHE.pop(next(iter(_PIPELINE_CACHE))))
     _PIPELINE_CACHE[key] = pipe
     return pipe, True
 

@@ -14,7 +14,12 @@ COO entries carry sentinel coordinates (row == nrows, col == ncols, value
 
 ``@`` and ``*`` between two sparse matrices are SpGEMM
 (:func:`ops.spgemm.spgemm`), and ``+``/``-`` the union merge
-(:func:`ops.linalg.add` / ``lin``), as in the JAX package.
+(:func:`ops.linalg.add` / ``lin``), as in the JAX package; ``abs``,
+``signum``, ``reduce_values`` and ``sum_values`` are the reference's
+elementwise and fold methods.  The JAX ``CSR.row`` / ``CSC.col`` methods
+are left out: ``ops.structure.to_rows`` / ``to_columns`` cut the rows or
+columns from one host copy of the pointers, and the names stay those of
+COO's index fields.
 """
 
 from __future__ import annotations
@@ -82,6 +87,53 @@ class _MatrixOpsMixin(TensorFields):
 
     def __neg__(self):
         return self.map_values(torch.negative)
+
+    def __abs__(self):
+        """Elementwise absolute value (reference Num ``abs``)."""
+        return self.map_values(torch.abs)
+
+    def signum(self):
+        """Elementwise sign (reference Num ``signum``): x / |x| for complex
+        values, as ``jnp.sign``; 0 stays 0."""
+        return self.map_values(torch.sgn)
+
+    def reduce_values(self, f, init):
+        """Fold over STORED values only (reference MonoFoldable
+        ``ofoldl'``), on a host copy of the values, as the JAX package
+        folds.
+
+        When ``f`` is one of the recognized associative binary ops (add,
+        multiply, maximum, minimum of numpy or torch; ``operator.add`` /
+        ``operator.mul``) the fold runs as ONE numpy reduction and the
+        numpy op of ``(init, reduced)``: the same result up to
+        floating-point reassociation.  Any other ``f`` gets
+        the exact sequential left fold, O(nnz) host iterations."""
+        import operator
+
+        from sparse_linear_tpu_torch.ops.build import trim
+
+        vals = trim(self).data.detach().resolve_conj().cpu().numpy()
+        folds = {}
+        for ufunc, torch_op in ((np.add, torch.add), (np.multiply, torch.mul),
+                                (np.maximum, torch.maximum),
+                                (np.minimum, torch.minimum)):
+            folds[ufunc] = folds[torch_op] = ufunc
+        folds[operator.add] = np.add
+        folds[operator.mul] = np.multiply
+        ufunc = folds.get(f)
+        if ufunc is not None and vals.size:
+            return ufunc(init, ufunc.reduce(vals))
+        acc = init
+        for v in vals:
+            acc = f(acc, v)
+        return acc
+
+    def sum_values(self):
+        """Sum of the stored (valid) values, a 0-d tensor on the matrix's
+        device (``ofoldl' (+)``)."""
+        from sparse_linear_tpu_torch.ops.linalg import _valid_coords
+
+        return _valid_coords(self)[2].sum()
 
     def conj(self):
         return self.map_values(_conj)

@@ -2,16 +2,25 @@
 
 Counterpart of :mod:`sparse_linear_tpu.formats.select`, with its rule: a
 pattern on at most ``max_diags`` distinct diagonals (a stencil) goes to DIA,
-any other pattern to WELL.  The diagonals are counted with ``torch.unique``
-on the matrix's device.  ELL and BSR are not ported yet (ROADMAP.md queue 1
-item 6), and the rule never names them.
+any other pattern to WELL, real or complex alike.  The diagonals are
+counted with ``torch.unique`` on the matrix's device.  ``to_fast_format``
+keeps the JAX function's branches for ELL and BSR, which the rule never
+names, as the JAX rule does not.
+
+``to_fast_format(mat)`` returns an equivalent structured matrix whose ``@``
+runs the corresponding kernel: on the card, kernel A (DIA) or kernel C
+(WELL), in float32, float64, complex64 or complex128.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sparse_linear_tpu_torch.formats.structured import csr_to_dia
+from sparse_linear_tpu_torch.formats.structured import (
+    csr_to_bsr,
+    csr_to_dia,
+    csr_to_ell,
+)
 from sparse_linear_tpu_torch.formats.well import csr_to_well
 from sparse_linear_tpu_torch.ops.build import trim
 
@@ -38,4 +47,8 @@ def to_fast_format(mat, **opts):
     mat = mat.tocsr()
     if kind == "dia":
         return csr_to_dia(mat, max_diags=2 ** 31)
-    return csr_to_well(mat)
+    if kind == "well":
+        return csr_to_well(mat)
+    if kind == "ell":
+        return csr_to_ell(mat)
+    return csr_to_bsr(mat, block_shape=(8, 128))

@@ -5,7 +5,11 @@ A JAX format's leaves (``np.asarray(a.data)``, ``a.offsets``, ``a.shape``,
 come out as the port's format on ``device`` (by default the card), and
 back.  Only numpy arrays cross, so this module never imports JAX.
 
-``from_arrays(*to_arrays(m), device=...)`` rebuilds ``m``.
+``from_arrays(*to_arrays(m), device=...)`` rebuilds ``m``.  Kinds
+``"ell"`` (``cols``, ``vals``), ``"bsr"`` (``indptr``, ``indices``,
+``blocks``; the block shape is ``blocks.shape[1:]``) and
+``"sparse_vector"`` (``indices``, ``data``; the shape is ``(length,)``)
+cross both ways like the interchange formats.
 
 Kinds ``"well"`` and ``"well64"`` carry a JAX WELL packing across, one way:
 its chunk planes (``bases``, ``idx``, ``vals`` and ``vals_im``, or the
@@ -32,7 +36,8 @@ import torch
 
 from sparse_linear_tpu_torch.dtypes import default_device, index_dtype
 from sparse_linear_tpu_torch.formats.matrix import COO, CSC, CSR, from_triples
-from sparse_linear_tpu_torch.formats.structured import DIA
+from sparse_linear_tpu_torch.formats.sparse_vector import SparseVector
+from sparse_linear_tpu_torch.formats.structured import BSR, DIA, ELL
 from sparse_linear_tpu_torch.formats.well import csr_to_well
 from sparse_linear_tpu_torch.kernels.spmv_well64 import csr_to_well64
 
@@ -44,6 +49,9 @@ KINDS = {
     "csr": ("indptr", "indices", "data"),
     "csc": ("indptr", "indices", "data"),
     "dia": ("data",),
+    "ell": ("cols", "vals"),
+    "bsr": ("indptr", "indices", "blocks"),
+    "sparse_vector": ("indices", "data"),
     # JAX WELL chunk planes; "well" also takes an optional "vals_im"
     "well": ("bases", "idx", "vals"),
     "well64": ("bases", "idx", "vals", "vals_lo"),
@@ -52,7 +60,7 @@ KINDS = {
 }
 # per-bucket leaves of "mf_factors", named f"{leaf}.{bucket}"
 MF_BLOCK_LEAVES = ("lu", "perm", "g21", "g12")
-_INDEX_LEAVES = {"row", "col", "indptr", "indices"}
+_INDEX_LEAVES = {"row", "col", "indptr", "indices", "cols"}
 _VREG_ROWS = 1024  # the JAX WELL's output vreg: 8 sublanes x 128 lanes
 _LANES = 128
 
@@ -154,7 +162,15 @@ def from_arrays(kind: str, arrays, shape, offsets=None, *, device=None,
         )
         for n in KINDS[kind]
     }
+    if kind == "sparse_vector":
+        (length,) = (int(s) for s in shape)
+        return SparseVector(**leaves, length=length)
     nr, nc = (int(s) for s in shape)
+    if kind == "ell":
+        return ELL(**leaves, shape=(nr, nc))
+    if kind == "bsr":
+        return BSR(**leaves, shape=(nr, nc),
+                   block_shape=tuple(int(b) for b in leaves["blocks"].shape[1:]))
     if kind == "dia":
         if offsets is None:
             raise ValueError("from_arrays('dia'): offsets are required")
@@ -189,8 +205,15 @@ def to_arrays(mat):
         if mat.row_scale is not None:
             arrays["rscale"] = _host(mat.row_scale)
         return "mf_factors", arrays, (mat.n, mat.n), None
+    if isinstance(mat, SparseVector):
+        arrays = {n: _host(getattr(mat, n)) for n in KINDS["sparse_vector"]}
+        return "sparse_vector", arrays, (mat.length,), None
     if isinstance(mat, DIA):
         kind = "dia"
+    elif isinstance(mat, ELL):
+        kind = "ell"
+    elif isinstance(mat, BSR):
+        kind = "bsr"
     elif isinstance(mat, COO):
         kind = "coo"
     elif isinstance(mat, CSR):
@@ -199,6 +222,6 @@ def to_arrays(mat):
         kind = "csc"
     else:
         raise TypeError(f"to_arrays: unknown format {type(mat).__name__}")
-    arrays = {n: getattr(mat, n).cpu().numpy() for n in KINDS[kind]}
+    arrays = {n: _host(getattr(mat, n)) for n in KINDS[kind]}
     offsets = mat.offsets if kind == "dia" else None
     return kind, arrays, tuple(mat.shape), offsets

@@ -41,17 +41,14 @@ _CHAIN_ARGS = [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int,
 _WELL_SPMV_ARGS = [_P, _P, _P, _P, _P, _I64, ctypes.c_int, _P]
 _WELL_SPMM_ARGS = [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+_TYPES = ("f32", "f64", "c64", "c128")
 _SIGNATURES = {
-    "slt_dia_spmv_f32": _SPMV_ARGS,
-    "slt_dia_spmv_f64": _SPMV_ARGS,
-    "slt_dia_spmm_f32": _DIA_SPMM_ARGS,
-    "slt_dia_spmm_f64": _DIA_SPMM_ARGS,
+    **{f"slt_dia_spmv_{t}": _SPMV_ARGS for t in _TYPES},
+    **{f"slt_dia_spmm_{t}": _DIA_SPMM_ARGS for t in _TYPES},
     "slt_dia_chain_f32": _CHAIN_ARGS,
     "slt_dia_chain_f64": _CHAIN_ARGS,
-    "slt_well_spmv_f32": _WELL_SPMV_ARGS,
-    "slt_well_spmv_f64": _WELL_SPMV_ARGS,
-    "slt_well_spmm_f32": _WELL_SPMM_ARGS,
-    "slt_well_spmm_f64": _WELL_SPMM_ARGS,
+    **{f"slt_well_spmv_{t}": _WELL_SPMV_ARGS for t in _TYPES},
+    **{f"slt_well_spmm_{t}": _WELL_SPMM_ARGS for t in _TYPES},
 }
 
 

@@ -1,19 +1,30 @@
-"""Plain PyTorch SpMV / SpMM over DIA storage.
+"""Plain PyTorch SpMV / SpMM over the structured formats.
 
-Counterpart of the DIA part of :mod:`sparse_linear_tpu.kernels.spmv`, which
-are XLA forms in the JAX package.  Each diagonal is one shifted
-multiply-add over a zero-padded x, so a column index outside [0, ncols)
-contributes nothing.  :func:`dia_spmv` is also the plain version of the
-Hopper kernel in :mod:`.spmv_dia`: the CPU path of that kernel's wrapper,
-and the reference the tests and ``chip_smoke.py`` hold the kernel against.
-ELL/BSR forms are not ported yet (ROADMAP.md queue 1 item 6).
+Counterpart of :mod:`sparse_linear_tpu.kernels.spmv`, whose functions are
+XLA forms in the JAX package, not ``pallas_call`` sites.
+
+* DIA: each diagonal is one shifted multiply-add over a zero-padded x, so a
+  column index outside [0, ncols) contributes nothing.  :func:`dia_spmv`,
+  :func:`dia_spmm` and :func:`dia_spmm_planes` are also the plain versions
+  of the Hopper kernels in :mod:`.spmv_dia`: the CPU path of those
+  wrappers, and the reference the tests and ``chip_smoke.py`` hold the
+  kernels against.
+* ELL: a gather of x by the (nrows, K) column table and a row sum.
+* BSR: batched (bm, bn) block products (``torch.einsum``) and a sum by
+  block row (``index_add_``).  The JAX forms cast x to the blocks' dtype
+  before the product; here both are promoted to ``torch.result_type``, so
+  a real BSR times a complex x keeps x's imaginary part.
+
+On CUDA the ELL and BSR forms run PyTorch's own kernels: no hand-written
+kernel replaces them.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["dia_spmv", "dia_spmm", "dia_spmm_planes"]
+__all__ = ["dia_spmv", "dia_spmm", "dia_spmm_planes", "ell_spmv",
+           "bsr_spmv", "bsr_spmm"]
 
 
 def _pads(dia):
@@ -86,3 +97,54 @@ def dia_spmm_planes(dia, xp: torch.Tensor) -> torch.Tensor:
     for d, off in enumerate(dia.offsets):
         y.addcmul_(data[d][None, :], x2.narrow(1, off + pad_lo, nr))
     return y
+
+
+def ell_spmv(ell, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for ELL storage: gather + row-sum over the static width
+    K."""
+    nr, nc = ell.shape
+    if x.shape[0] != nc:
+        raise ValueError(
+            f"ell_spmv: dimension mismatch {ell.shape} @ {tuple(x.shape)}")
+    return (ell.vals * x[ell.cols.long()]).sum(dim=1)
+
+
+def _bsr_product(bsr, xb: torch.Tensor, spec: str) -> torch.Tensor:
+    """Sum by block row of the block products ``einsum(spec, blocks,
+    xb[indices])``: (nbrows, bm, ...) before the final reshape."""
+    from sparse_linear_tpu_torch.formats.base import expand_indptr
+
+    nr = bsr.shape[0]
+    bm = bsr.block_shape[0]
+    dtype = torch.result_type(bsr.blocks, xb)
+    contrib = torch.einsum(spec, bsr.blocks.to(dtype),
+                           xb[bsr.indices.long()].to(dtype))
+    brow = expand_indptr(bsr.indptr, int(bsr.blocks.shape[0]))
+    y = torch.zeros((nr // bm,) + tuple(contrib.shape[1:]), dtype=dtype,
+                    device=xb.device)
+    # block rows are nondecreasing by CSR construction
+    return y.index_add_(0, brow, contrib)
+
+
+def bsr_spmv(bsr, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for BSR storage: batched block GEMV + block-row sum."""
+    nr, nc = bsr.shape
+    bn = bsr.block_shape[1]
+    if x.shape[0] != nc:
+        raise ValueError(
+            f"bsr_spmv: dimension mismatch {bsr.shape} @ {tuple(x.shape)}")
+    y = _bsr_product(bsr, x.reshape(nc // bn, bn), "kij,kj->ki")
+    return y.reshape(nr)
+
+
+def bsr_spmm(bsr, b: torch.Tensor) -> torch.Tensor:
+    """Y = A @ B for BSR storage and dense B (ncols, m): batched block
+    GEMMs + block-row sum."""
+    nr, nc = bsr.shape
+    bn = bsr.block_shape[1]
+    if b.shape[0] != nc:
+        raise ValueError(
+            f"bsr_spmm: dimension mismatch {bsr.shape} @ {tuple(b.shape)}")
+    m = b.shape[1]
+    y = _bsr_product(bsr, b.reshape(nc // bn, bn, m), "kij,kjm->kim")
+    return y.reshape(nr, m)

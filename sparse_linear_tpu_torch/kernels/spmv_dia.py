@@ -28,6 +28,17 @@ Counterpart of :mod:`sparse_linear_tpu.kernels.spmv_pallas`.
   zero with one fma each, so every column is bitwise kernel A on it,
   whatever the geometry.
 
+Kernel A and its multi-RHS form take float32, float64, complex64 and
+complex128.  The result's dtype is ``torch.result_type(data, x)``, the JAX
+forms' ``jnp.result_type``: complex if either operand is.  A complex
+operator runs the complex kernel (x cast to the result's dtype; each term
+one complex fma of four real ones, so columns stay bitwise kernel A).  A
+real operator with a complex x needs no complex kernel: it runs the real
+multi-RHS form on the real block ``torch.view_as_real(x)`` (a vector as an
+(nc, 2) block, a column-major X as (nc, 2m)), one launch, and each of the
+real and imaginary parts is bitwise the real kernel on it.  Kernel B
+(the chain) is real only: no main path chains a complex operator.
+
 A wrapper takes the plain PyTorch version (:func:`.spmv.dia_spmv`,
 :func:`.spmv.dia_spmm`, :func:`.spmv.dia_spmm_planes`) only because its
 tensors lie on the CPU.  On CUDA tensors it launches its kernel
@@ -50,7 +61,9 @@ from sparse_linear_tpu_torch.kernels.spmv import (
 __all__ = ["dia_spmv_kernel", "dia_spmv_chain", "dia_spmm_kernel",
            "dia_spmm_planes_kernel"]
 
-_KERNEL_DTYPES = (torch.float32, torch.float64)
+# the kernels' element types and the suffix of their C entry points
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.complex64: "c64", torch.complex128: "c128"}
 
 
 def _device_of(name, *tensors) -> torch.device:
@@ -90,20 +103,41 @@ def _flat(name, dia, x):
     return x, None
 
 
-def _kernel_dtype(name, dtype, fmt="DIA") -> None:
-    if dtype.is_complex:
-        raise TypeError(
-            f"{name}: complex {fmt} on CUDA is not ported yet (ROADMAP.md "
-            f"queue 1 item 10: complex instantiations of the {fmt} kernels); "
-            "complex runs on CPU tensors through the plain version"
-        )
-    if dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"{name}: the CUDA kernel takes float32 or float64, "
-                        f"not {dtype}")
+def _check_dtype(name, dtype) -> None:
+    """Raise ``TypeError`` for a dtype the kernels do not take."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{name}: the CUDA kernel takes float32, float64, "
+                        f"complex64 or complex128, not {dtype}")
+
+
+def _entry(lib, name, stem, dtype):
+    """The C entry point ``slt_<stem>_<type>`` of the kernel for
+    ``dtype``."""
+    _check_dtype(name, dtype)
+    return getattr(lib, f"slt_{stem}_{_SUFFIX[dtype]}")
+
+
+def _real_parts(x: torch.Tensor, kernel) -> torch.Tensor:
+    """``kernel`` (a real multi-RHS product of a column-major (nc, k) block)
+    on a complex x, (nc,) or column-major (nc, m), through the real block
+    ``torch.view_as_real(x)``: (nc, 2) or (nc, 2m).  Each of the result's
+    real and imaginary parts is bitwise the real kernel on that part."""
+    m = x.shape[1] if x.ndim == 2 else 1
+    xr = torch.view_as_real(_resolved(x))
+    y = kernel(xr.reshape(x.shape[0], 2 * m))
+    return torch.view_as_complex(y.reshape(y.shape[0], m, 2)).reshape(
+        (y.shape[0],) + tuple(x.shape[1:]))
 
 
 def _alpha(alpha) -> float:
     return 1.0 if alpha is None else float(alpha)
+
+
+def _resolved(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as contiguous memory holding its values: a conjugated or
+    negated view is resolved first (its ``data_ptr`` holds the values
+    before the lazy conjugation or negation)."""
+    return t.resolve_conj().resolve_neg().contiguous()
 
 
 def _stream(device: torch.device) -> int:
@@ -132,15 +166,20 @@ def dia_spmv_kernel(dia, x: torch.Tensor, alpha=None) -> torch.Tensor:
 
 def _launch_spmv(dia, x, alpha, device):
     nr, nc = dia.shape
+    name = "dia_spmv_kernel"
     dtype = torch.result_type(dia.data, x)
-    _kernel_dtype("dia_spmv_kernel", dtype)
-    data = dia.data.to(dtype).contiguous()
-    x = x.to(dtype).contiguous()
+    _check_dtype(name, dtype)
+    if dtype.is_complex and not dia.data.dtype.is_complex:
+        y = _real_parts(x.to(dtype), lambda xr: _launch_spmm(
+            name, dia, xr, False, device))
+        return y if alpha is None else y * _alpha(alpha)
+    data = _resolved(dia.data.to(dtype))
+    x = _resolved(x.to(dtype))
     y = torch.empty((nr,), dtype=dtype, device=device)
     if nr == 0:
         return y
     lib = _build.load_library()
-    fn = lib.slt_dia_spmv_f32 if dtype == torch.float32 else lib.slt_dia_spmv_f64
+    fn = _entry(lib, name, "dia_spmv", dtype)
     code = fn(data.data_ptr(), dia.offsets_tensor.data_ptr(), x.data_ptr(),
               y.data_ptr(), len(dia.offsets), nr, nc, _alpha(alpha),
               device.index, _stream(device))
@@ -160,7 +199,9 @@ def dia_spmv_chain(dia, x: torch.Tensor, k: int, alpha=None) -> torch.Tensor:
     between them and two ping-pong vectors.  ``x`` is cast to the data
     dtype and so is the result.  Square operators only; ``k >= 1``.  The
     JAX kernel's 1024-row alignment and 120 MB budget are VMEM limits and
-    do not apply: any square size runs.  The H100 has no 128 MB scratchpad
+    do not apply: any square size runs.  The CUDA kernel is real only
+    (float32, float64): a complex operator or x on CUDA raises
+    ``TypeError``.  The H100 has no 128 MB scratchpad
     for the operator, and its 50 MB L2 holds the 84 MB f32 2048**2 Poisson
     operator only in part.
     """
@@ -172,9 +213,8 @@ def dia_spmv_chain(dia, x: torch.Tensor, k: int, alpha=None) -> torch.Tensor:
     name = "dia_spmv_chain"
     device = _device_of(name, dia.data, x)
     xf, width = _flat(name, dia, x)
-    xf = xf.to(dia.data.dtype)
     if device.type == "cpu":
-        y = xf
+        y = xf.to(dia.data.dtype)
         for _ in range(k):
             y = dia_spmv(dia, y)
             if alpha is not None:
@@ -187,17 +227,21 @@ def dia_spmv_chain(dia, x: torch.Tensor, k: int, alpha=None) -> torch.Tensor:
 def _launch_chain(dia, x, k, alpha, device):
     n = dia.shape[0]
     dtype = dia.data.dtype
-    _kernel_dtype("dia_spmv_chain", dtype)
+    if dtype not in (torch.float32, torch.float64) or x.is_complex():
+        raise TypeError(
+            f"dia_spmv_chain: the CUDA kernel takes a float32 or float64 "
+            f"operator and a real x, not {dtype} and {x.dtype} (the chain "
+            f"has no complex form)")
     if k >= 2**31:
         raise ValueError("dia_spmv_chain: k must be < 2**31")
-    data = dia.data.contiguous()
-    x = x.contiguous()
+    data = _resolved(dia.data)
+    x = _resolved(x.to(dtype))
     bufs = (torch.empty((n,), dtype=dtype, device=device),)
     bufs += (torch.empty_like(bufs[0]),) if k > 1 else bufs
     if n == 0:
         return bufs[0]
     lib = _build.load_library()
-    fn = lib.slt_dia_chain_f32 if dtype == torch.float32 else lib.slt_dia_chain_f64
+    fn = _entry(lib, "dia_spmv_chain", "dia_chain", dtype)
     code = fn(data.data_ptr(), dia.offsets_tensor.data_ptr(), x.data_ptr(),
               bufs[0].data_ptr(), bufs[1].data_ptr(), len(dia.offsets), n, k,
               _alpha(alpha), device.index, _stream(device))
@@ -213,10 +257,9 @@ def dia_spmm_kernel(dia, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X for DIA storage and a dense column-major X of shape
     (ncols, m); a 1-D x is :func:`dia_spmv_kernel`.
 
-    ``data`` and X are promoted to ``torch.result_type(data, X)``.  Complex
-    on CUDA raises ``TypeError``: a caller with complex X on a real
-    operator passes the real (ncols, 2m) block ``torch.view_as_real(X)``,
-    as ``eig.pipeline.StructuredOp`` does."""
+    ``data`` and X are promoted to ``torch.result_type(data, X)``.  A
+    complex X on a real operator runs the real kernel on the (ncols, 2m)
+    block ``torch.view_as_real(X)``."""
     name = "dia_spmm_kernel"
     if x.ndim == 1:
         return dia_spmv_kernel(dia, x)
@@ -233,8 +276,9 @@ def dia_spmm_kernel(dia, x: torch.Tensor) -> torch.Tensor:
 
 def dia_spmm_planes_kernel(dia, xp: torch.Tensor) -> torch.Tensor:
     """Plane-major Y = A @ X for DIA storage: ``xp`` of shape (m, ncols),
-    one right-hand side a row, returns (m, nrows).  Complex on CUDA raises
-    ``TypeError``."""
+    one right-hand side a row, returns (m, nrows).  A complex X on a real
+    operator runs the real kernel on the real and imaginary planes, (2m,
+    ncols), one launch."""
     name = "dia_spmm_planes_kernel"
     device = _device_of(name, dia.data, xp)
     nr, nc = dia.shape
@@ -268,7 +312,10 @@ def _dia_spmm_plan(m: int, itemsize: int, vector: bool,
     itemsize a multiple of 16, both 16-byte aligned); else one value a
     lane.  The lanes of a row are the fewest (a power of two) that cover m,
     up to one 128-byte run; past that a lane takes more chunks (vector
-    lanes only, at most four), and past those the kernel tiles m."""
+    lanes only, at most four), and past those the kernel tiles m.
+    ``itemsize`` is 4, 8 (float64, complex64) or 16 (complex128, one value
+    a 16-byte vector): a chunk holds 16 bytes a lane whatever the type, so
+    its registers, and the cap, are the same for complex."""
     if planes:
         return 1, min(_PLANES_A_PASS, 1 << (m - 1).bit_length())
     per_lane = 16 // itemsize if vector else 1
@@ -283,12 +330,21 @@ def _dia_spmm_plan(m: int, itemsize: int, vector: bool,
 def _launch_spmm(name, dia, x, planes, device):
     nr, nc = dia.shape
     dtype = torch.result_type(dia.data, x)
-    _kernel_dtype(name, dtype)
+    _check_dtype(name, dtype)
+    if dtype.is_complex and not dia.data.dtype.is_complex:
+        x = x.to(dtype).resolve_conj()
+        if planes:
+            m = x.shape[0]
+            y = _launch_spmm(name, dia, torch.cat([x.real, x.imag]), True,
+                             device)
+            return torch.complex(y[:m], y[m:])
+        return _real_parts(x, lambda xr: _launch_spmm(name, dia, xr, False,
+                                                      device))
     m = x.shape[0] if planes else x.shape[1]
     if m >= 2**31:
         raise ValueError(f"{name}: m must be < 2**31")
-    data = dia.data.to(dtype).contiguous()
-    x = x.to(dtype).contiguous()
+    data = _resolved(dia.data.to(dtype))
+    x = _resolved(x.to(dtype))
     y = torch.empty((m, nr) if planes else (nr, m), dtype=dtype,
                     device=device)
     if nr == 0 or m == 0:
@@ -298,7 +354,7 @@ def _launch_spmm(name, dia, x, planes, device):
               and y.data_ptr() % 16 == 0)
     lanes, chunks = _dia_spmm_plan(m, item, vector, planes)
     lib = _build.load_library()
-    fn = lib.slt_dia_spmm_f32 if dtype == torch.float32 else lib.slt_dia_spmm_f64
+    fn = _entry(lib, name, "dia_spmm", dtype)
     code = fn(data.data_ptr(), dia.offsets_tensor.data_ptr(), x.data_ptr(),
               y.data_ptr(), len(dia.offsets), nr, nc, m, int(planes),
               int(vector), lanes, chunks, device.index, _stream(device))

@@ -37,14 +37,21 @@ public names.
   ``well_spmm(a, X)`` is bitwise ``well_spmv(a, X[:, t])``.
 
 Output dtype follows the JAX package: x is cast to the matrix's dtype, and
-the result is complex when A or x is.  A wrapper takes the plain PyTorch
-version (:func:`well_spmv_plain`, :func:`well_spmm_planes_plain`: gather
-``x[cols]``, multiply by ``vals``, ``index_add_`` by row) only because its
-tensors lie on the CPU.  On CUDA tensors it launches its kernel on the
-current stream or raises; complex values on CUDA raise ``TypeError``.
-Kernel C's launches are counted in ``well_spmv.launches`` and kernel D's in
-``well_spmm.launches``, whichever wrapper launched it (plain ints; set to 0
-to reset).
+the result is complex when A or x is.  Both kernels take float32, float64,
+complex64 and complex128.  A complex WELL runs the complex kernels (each
+slot one complex fma of four real ones, so column t of kernel D stays
+bitwise kernel C on column t).  A real WELL with a complex x needs no
+complex kernel: it runs real kernel D on the real block
+``torch.view_as_real(x)`` (a vector as an (nc, 2) block, a column-major X
+as (nc, 2m), planes as their real and imaginary planes), one launch, and
+each part is bitwise the real kernel on it (the JAX package runs the same
+real plane passes, ``spmv_well.py:493-563``).  A wrapper takes the plain
+PyTorch version (:func:`well_spmv_plain`, :func:`well_spmm_planes_plain`:
+gather ``x[cols]``, multiply by ``vals``, ``index_add_`` by row) only
+because its tensors lie on the CPU.  On CUDA tensors it launches its
+kernel on the current stream or raises.  Kernel C's launches are counted
+in ``well_spmv.launches`` and kernel D's in ``well_spmm.launches``,
+whichever wrapper launched it (plain ints; set to 0 to reset).
 """
 
 from __future__ import annotations
@@ -56,8 +63,11 @@ from sparse_linear_tpu_torch.dtypes import complex_of
 from sparse_linear_tpu_torch.formats.well import SLICE_ROWS
 from sparse_linear_tpu_torch.kernels import _build
 from sparse_linear_tpu_torch.kernels.spmv_dia import (
+    _check_dtype,
     _device_of,
-    _kernel_dtype,
+    _entry,
+    _resolved,
+    _real_parts,
     _stream,
 )
 
@@ -128,16 +138,18 @@ def well_spmv(a, x) -> torch.Tensor:
         return well_spmv_plain(a, x)
     name = "well_spmv"
     dtype = _out_dtype(a, x)
-    _kernel_dtype(name, dtype, "WELL")
+    _check_dtype(name, dtype)
     _check_layout(name, a)
+    if dtype.is_complex and not a.vals.is_complex():
+        return _real_parts(x.to(dtype), lambda xr: _column_major(name, a, xr))
     nr = a.shape[0]
-    x = x.to(dtype).contiguous()
+    x = _resolved(x.to(dtype))
     y = torch.empty((nr,), dtype=dtype, device=device)
     if nr == 0:
         return y
-    vals = a.vals.contiguous()
+    vals = _resolved(a.vals)
     lib = _build.load_library()
-    fn = lib.slt_well_spmv_f32 if dtype == torch.float32 else lib.slt_well_spmv_f64
+    fn = _entry(lib, name, "well_spmv", dtype)
     code = fn(a.slice_ptr.contiguous().data_ptr(),
               a.cols.contiguous().data_ptr(), vals.data_ptr(), x.data_ptr(),
               y.data_ptr(), nr, device.index, _stream(device))
@@ -172,7 +184,9 @@ def _spmm_plan(m: int, itemsize: int, vector: bool,
     lane takes one value.  The lanes of a row are the fewest
     (a power of two) that cover m, up to one 128-byte run; past that a
     lane takes more chunks (vector lanes only), and past those the kernel
-    tiles m."""
+    tiles m.  ``itemsize`` is 4, 8 (float64, complex64) or 16 (complex128,
+    one value a 16-byte vector): a chunk holds 16 bytes a lane whatever the
+    type, so its registers, and the caps, are the same for complex."""
     per_lane = 16 // itemsize if vector else 1
     lanes_max = _ROW_BYTES // (per_lane * itemsize)
     units = -(-m // per_lane)
@@ -199,22 +213,29 @@ def _launch_spmm(name, a, xt, y, y_row, y_rhs) -> None:
     nr, m = a.shape[0], xt.shape[1]
     if nr == 0 or m == 0:
         return
-    xt = xt.contiguous()
+    xt = _resolved(xt)
     item = y.element_size()
     planes = y_row == 1
     vector = (m * item % 16 == 0 and xt.data_ptr() % 16 == 0
               and (planes or (y_rhs == 1 and y.data_ptr() % 16 == 0)))
     lanes, chunks = _spmm_plan(m, item, vector, planes)
     device = y.device
-    vals = a.vals.contiguous()
+    vals = _resolved(a.vals)
     lib = _build.load_library()
-    fn = lib.slt_well_spmm_f32 if y.dtype == torch.float32 else lib.slt_well_spmm_f64
+    fn = _entry(lib, name, "well_spmm", y.dtype)
     code = fn(a.slice_ptr.contiguous().data_ptr(),
               a.cols.contiguous().data_ptr(), vals.data_ptr(), xt.data_ptr(),
               y.data_ptr(), nr, m, y_row, y_rhs, int(vector), lanes, chunks,
               _stage_slots(a), device.index, _stream(device))
     _build.check(lib, code, f"{name} launch")
     well_spmm.launches += 1
+
+
+def _column_major(name, a, x) -> torch.Tensor:
+    """Kernel D on a column-major X (nc, m), into a new Y (nr, m)."""
+    y = torch.empty((a.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
+    _launch_spmm(name, a, x, y, x.shape[1], 1)
+    return y
 
 
 def well_planes_width(a) -> int:
@@ -241,8 +262,12 @@ def well_spmm_planes(a, xp) -> torch.Tensor:
     if device.type == "cpu":
         return well_spmm_planes_plain(a, xp)
     dtype = _out_dtype(a, xp)
-    _kernel_dtype("well_spmm_planes", dtype, "WELL")
+    _check_dtype("well_spmm_planes", dtype)
     xp = xp.to(dtype)
+    if dtype.is_complex and not a.vals.is_complex():
+        xp = xp.resolve_conj()
+        y = well_spmm_planes(a, torch.cat([xp.real, xp.imag]))
+        return torch.complex(y[: xp.shape[0]], y[xp.shape[0]:])
     nr = a.shape[0]
     y = torch.empty((xp.shape[0], nr), dtype=dtype, device=device)
     _launch_spmm("well_spmm_planes", a, xp.T, y, 1, nr)
@@ -265,12 +290,11 @@ def well_spmm(a, x) -> torch.Tensor:
     if device.type == "cpu":
         return well_spmm_planes_plain(a, x.T).T
     dtype = _out_dtype(a, x)
-    _kernel_dtype("well_spmm", dtype, "WELL")
+    _check_dtype("well_spmm", dtype)
     x = x.to(dtype)
-    m = x.shape[1]
-    y = torch.empty((a.shape[0], m), dtype=dtype, device=device)
-    _launch_spmm("well_spmm", a, x, y, m, 1)
-    return y
+    if dtype.is_complex and not a.vals.is_complex():
+        return _real_parts(x, lambda xr: _column_major("well_spmm", a, xr))
+    return _column_major("well_spmm", a, x)
 
 
 well_spmm.launches = 0

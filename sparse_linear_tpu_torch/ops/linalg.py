@@ -1,13 +1,13 @@
 """BLAS-like sparse linear algebra over the interchange formats.
 
-Counterpart of :mod:`sparse_linear_tpu.ops.linalg` without
-``elementwise_mul`` (ROADMAP.md queue 1 item 6).  ``spmv``/``spmm`` are a
+Counterpart of :mod:`sparse_linear_tpu.ops.linalg`.  ``spmv``/``spmm`` are a
 gather of x by column and an ``index_add_`` by row; on the card they are the
 independent CSR reference that residual checks use beside the DIA kernels.
 ``glin``/``lin``/``add`` are the reference's union merge (``glin``,
 Matrix/Sparse.hs:401-431) as one sort of the (row, col) keys of both
 operands: ``torch.unique`` finds the union pattern, and each slot folds its
-A and B values as the reference's workspace does.
+A and B values as the reference's workspace does; ``elementwise_mul`` is the
+same merge with the reference's union-fold product.
 
 ``index_add_`` on CUDA sums each row's products in an unspecified order, so
 results agree with the JAX package to rounding (1e-12 relative in f64), not
@@ -22,7 +22,8 @@ from sparse_linear_tpu_torch.dtypes import index_dtype
 from sparse_linear_tpu_torch.formats.base import compute_indptr
 from sparse_linear_tpu_torch.formats.matrix import COO, CSC, CSR
 
-__all__ = ["spmv", "axpy", "spmm", "scale", "glin", "lin", "add"]
+__all__ = ["spmv", "axpy", "spmm", "scale", "glin", "lin", "add",
+           "elementwise_mul"]
 
 
 def _valid_coords(mat):
@@ -125,3 +126,9 @@ def lin(alpha, mat_a, beta, mat_b):
 def add(mat_a, mat_b):
     """A + B (reference Num ``+``, Matrix/Sparse.hs:100-113)."""
     return lin(1, mat_a, 1, mat_b)
+
+
+def elementwise_mul(mat_a, mat_b):
+    """Elementwise product with the reference's union-fold semantics
+    (slots only in A keep A's value; see Vector/Sparse.hs:126)."""
+    return glin(0, lambda c, a: c + a, mat_a, lambda c, b: c * b, mat_b)

@@ -1,7 +1,8 @@
 """The port's Hopper kernels against their plain versions, on the card:
 kernels A and B (DIA SpMV and chain), kernel A's multi-RHS form (DIA
 SpMM, both layouts, every column bitwise kernel A) and kernels C and D
-(WELL SpMV and SpMM); the multifrontal direct solver on CUDA tensors
+(WELL SpMV and SpMM), real and complex (complex64 / complex128, and a real
+operator times a complex x); the multifrontal direct solver on CUDA tensors
 against the port on the CPU (f64/c128 within 1e-12, f32/c64 within 1e-5),
 every block and solution on the card; and FEAST on the card against the
 analytic spectrum.
@@ -12,8 +13,8 @@ is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances: max |y - y_plain| / max |y_plain| <= 1e-5 in f32 and 1e-12 in
-f64.  The DIA kernels sum the diagonals in the stored order, as the plain
+Tolerances: max |y - y_plain| / max |y_plain| <= 1e-5 in f32 and c64 and
+1e-12 in f64 and c128.  The DIA kernels sum the diagonals in the stored order, as the plain
 version does; only fused multiply-adds may round differently.  The WELL
 plain versions sum with ``index_add_``, whose order on CUDA is unspecified,
 so their parity is to rounding.
@@ -59,7 +60,9 @@ from sparse_linear_tpu_torch.utils.grids import poisson_2d, poisson_3d  # noqa: 
 
 pytestmark = pytest.mark.cuda
 
-RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+RTOL = {torch.float32: 1e-5, torch.float64: 1e-12,
+        torch.complex64: 1e-5, torch.complex128: 1e-12}
+COMPLEX = [torch.complex64, torch.complex128]
 
 
 @pytest.fixture
@@ -82,6 +85,26 @@ def _random_dia(rng, shape, offsets, dtype, dev):
         data[d][(i + off < 0) | (i + off >= nc)] = 0
     return DIA(data=torch.as_tensor(data, dtype=dtype, device=dev),
                shape=shape, offsets=tuple(offsets))
+
+
+def _phased(mat, dtype, seed=11):
+    """``mat`` (a DIA or a CSR) with each stored value turned by a seeded
+    random phase and cast to the complex ``dtype``: zeros stay zero."""
+    vals = mat.data
+    phase = np.random.default_rng(seed).uniform(0, 2 * np.pi,
+                                                tuple(vals.shape))
+    turned = vals.to(torch.complex128) * torch.as_tensor(
+        np.exp(1j * phase), device=vals.device)
+    if isinstance(mat, DIA):
+        return DIA(data=turned.to(dtype), shape=mat.shape,
+                   offsets=mat.offsets)
+    return mat.map_values(lambda v: turned.to(dtype))
+
+
+def _crandn(rng, shape, dtype, dev):
+    return torch.as_tensor(rng.standard_normal(shape)
+                           + 1j * rng.standard_normal(shape), dtype=dtype,
+                           device=dev)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
@@ -133,9 +156,15 @@ def test_dia_spmv_kernel_layout_and_promotion(dev):
 
 
 def test_dia_spmv_kernel_refuses(dev):
-    a = poisson_2d(8, dtype=torch.complex64, fmt="dia", device=dev)
-    with pytest.raises(TypeError, match="complex"):
-        dia_spmv_kernel(a, torch.ones(64, dtype=torch.complex64, device=dev))
+    """Complex values run (kernel A's complex64 instantiation here); a
+    dtype no kernel takes, other devices and a wrong length raise."""
+    a = _phased(poisson_2d(8, dtype=torch.float64, fmt="dia", device=dev),
+                torch.complex64)
+    x = torch.ones(64, dtype=torch.complex64, device=dev)
+    assert _rel(dia_spmv_kernel(a, x), dia_spmv(a, x)) <= 1e-5
+    half = DIA(data=a.data.real.half(), shape=a.shape, offsets=a.offsets)
+    with pytest.raises(TypeError, match="takes float32, float64, complex64"):
+        dia_spmv_kernel(half, x.real.half())
     b = poisson_2d(8, fmt="dia", device=dev)
     with pytest.raises(ValueError, match="different devices"):
         dia_spmv_kernel(b, torch.ones(64))
@@ -290,27 +319,127 @@ def test_dia_spmm_geometries_agree(dev, monkeypatch, dtype, m, planes, other):
 
 
 def test_dia_spmm_kernel_complex_and_refusals(dev):
+    """A complex X on a real operator runs the real kernel on its real
+    block, one launch in either layout, each part bitwise the real kernel
+    on it (StructuredOp's route too); a complex operator runs the complex
+    kernel; kernel B refuses complex, and a dtype no kernel takes
+    raises."""
     a = poisson_2d(16, dtype=torch.float64, fmt="dia", device=dev)
     rng = np.random.default_rng(6)
     xc = torch.as_tensor(rng.standard_normal((256, 3))
                          + 1j * rng.standard_normal((256, 3)), device=dev)
-    # complex X on a real operator: StructuredOp passes the real (nc, 2m)
-    # block, one launch; the wrapper itself refuses complex in both layouts
     from sparse_linear_tpu_torch.eig.pipeline import _structured_op
     op = _structured_op(poisson_2d(16, dtype=torch.float64, device=dev))
     assert op.route == "dia"
     before = dia_spmm_kernel.launches
-    assert _rel(op(xc), dia_spmm(a, xc)) <= 1e-12
+    y = op(xc)
     assert dia_spmm_kernel.launches == before + 1
-    with pytest.raises(TypeError, match="item 10"):
-        dia_spmm_kernel(a, xc)
-    with pytest.raises(TypeError, match="item 10"):
-        dia_spmm_planes_kernel(a, xc.T.contiguous())
-    ac = poisson_2d(16, dtype=torch.complex128, fmt="dia", device=dev)
-    with pytest.raises(TypeError, match="complex"):
-        dia_spmm_kernel(ac, xc)
+    assert _rel(y, dia_spmm(a, xc)) <= 1e-12
+    assert torch.equal(dia_spmm_kernel(a, xc), y)
+    assert torch.equal(y.real, dia_spmm_kernel(a, xc.real.contiguous()))
+    assert torch.equal(y.imag, dia_spmm_kernel(a, xc.imag.contiguous()))
+    before = dia_spmm_kernel.launches
+    yp = dia_spmm_planes_kernel(a, xc.T.contiguous())
+    assert dia_spmm_kernel.launches == before + 1
+    assert torch.equal(yp, y.T)
+    ac = _phased(a, torch.complex128)
+    yc = dia_spmm_kernel(ac, xc)
+    assert yc.dtype == torch.complex128
+    assert _rel(yc, dia_spmm(ac, xc)) <= 1e-12
+    with pytest.raises(TypeError, match="no complex form"):
+        dia_spmv_chain(ac, xc[:, 0].contiguous(), 2)
+    with pytest.raises(TypeError, match="no complex form"):
+        dia_spmv_chain(a, xc[:, 0].contiguous(), 2)
+    # a real x of another dtype takes the operator's, as on the CPU
+    a32 = poisson_2d(16, dtype=torch.float32, fmt="dia", device=dev)
+    x64 = xc[:, 0].real.contiguous()
+    y2 = dia_spmv_chain(a32, x64, 2)
+    assert y2.dtype == torch.float32
+    assert _rel(y2, dia_spmv(a32, dia_spmv(a32, x64.float()))) <= 1e-5
+    half = DIA(data=a.data.half(), shape=a.shape, offsets=a.offsets)
+    with pytest.raises(TypeError, match="takes float32, float64, complex64"):
+        dia_spmm_kernel(half, xc.real.half())
     with pytest.raises(ValueError, match="different devices"):
         dia_spmm_kernel(a, xc.cpu())
+
+
+@pytest.mark.parametrize("dtype", COMPLEX, ids=["c64", "c128"])
+@pytest.mark.parametrize("case", ["p2d_32", "p2d_45", "p3d_9", "wide",
+                                  "tall", "flat"])
+def test_dia_spmv_kernel_complex_matches_plain(dev, dtype, case):
+    """Complex kernel A (one cfma a term, alpha real) against the plain
+    version, and a real operator times a complex x (the real multi-RHS
+    form on the (nc, 2) block, each part bitwise real kernel A)."""
+    real = _dia_case(case, torch.float64, dev)
+    a = _phased(real, dtype)
+    rng = np.random.default_rng(12)
+    x = _crandn(rng, a.shape[1], dtype, dev)
+    before = dia_spmv_kernel.launches
+    y = dia_spmv_kernel(a, x)
+    torch.cuda.synchronize()
+    assert dia_spmv_kernel.launches == before + 1
+    assert y.dtype == dtype and _rel(y, dia_spmv(a, x)) <= RTOL[dtype]
+    assert _rel(dia_spmv_kernel(a, x, alpha=0.37), 0.37 * dia_spmv(a, x)) \
+        <= RTOL[dtype]
+    assert torch.equal(dia_spmv_kernel(a, x), y)
+    ar = DIA(data=real.data.to(torch.float64 if dtype == torch.complex128
+                               else torch.float32),
+             shape=real.shape, offsets=real.offsets)
+    before = (dia_spmv_kernel.launches, dia_spmm_kernel.launches)
+    yr = dia_spmv_kernel(ar, x)
+    assert (dia_spmv_kernel.launches, dia_spmm_kernel.launches) == \
+        (before[0], before[1] + 1)
+    assert yr.dtype == dtype and _rel(yr, dia_spmv(ar, x)) <= RTOL[dtype]
+    assert torch.equal(yr.real, dia_spmv_kernel(ar, x.real.contiguous()))
+    assert torch.equal(yr.imag, dia_spmv_kernel(ar, x.imag.contiguous()))
+
+
+@pytest.mark.parametrize("dtype", COMPLEX, ids=["c64", "c128"])
+@pytest.mark.parametrize("m", [1, 2, 3, 16, 80, 96, 160])
+@pytest.mark.parametrize("case", ["p2d_45", "p3d_9", "wide", "tall", "flat"])
+def test_dia_spmm_kernel_complex_matches_plain(dev, dtype, m, case):
+    """Complex kernel A's multi-RHS form, both layouts, against the plain
+    versions: m from one lane a row past the four chunks a lane holds
+    (tiled), every column bitwise complex kernel A on it."""
+    a = _phased(_dia_case(case, torch.float64, dev), dtype)
+    x = _crandn(np.random.default_rng(13), (a.shape[1], m), dtype, dev)
+    before = dia_spmm_kernel.launches
+    y = dia_spmm_kernel(a, x)
+    yp = dia_spmm_planes_kernel(a, x.T.contiguous())
+    torch.cuda.synchronize()
+    assert dia_spmm_kernel.launches == before + 2
+    assert y.shape == (a.shape[0], m) and yp.shape == (m, a.shape[0])
+    assert _rel(y, dia_spmm(a, x)) <= RTOL[dtype]
+    assert _rel(yp, dia_spmm_planes(a, x.T.contiguous())) <= RTOL[dtype]
+    for t in range(m):
+        col = dia_spmv_kernel(a, x[:, t].contiguous())
+        assert torch.equal(y[:, t], col) and torch.equal(yp[t], col), t
+    assert torch.equal(dia_spmm_kernel(a, x), y)
+
+
+@pytest.mark.parametrize("dtype", COMPLEX, ids=["c64", "c128"])
+@pytest.mark.parametrize("m", [1, 2, 16, 80, 96])
+def test_dia_spmm_complex_offset_views(dev, dtype, m):
+    """Complex X, and plane-major planes, that start one element past an
+    aligned boundary (for complex64 8 bytes off 16, the scalar lanes) give
+    bitwise the aligned call's result, and read nothing outside the view
+    (NaN around it)."""
+    a = _phased(_dia_case("tall", torch.float64, dev), dtype)
+    nc = a.shape[1]
+    rng = np.random.default_rng(14)
+    for planes in (False, True):
+        src = _crandn(rng, (m, nc) if planes else (nc, m), dtype, dev)
+        flat = torch.full((src.numel() + 4,), complex("nan+nanj"),
+                          dtype=dtype, device=dev)
+        view = flat[1:1 + src.numel()].view(src.shape)
+        view.copy_(src)
+        call = dia_spmm_planes_kernel if planes else dia_spmm_kernel
+        y = call(a, view)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(y).all())
+        assert torch.equal(y, call(a, src))
+        plain = dia_spmm_planes(a, src) if planes else dia_spmm(a, src)
+        assert _rel(y, plain) <= RTOL[dtype]
 
 
 def test_feast_eigsh_on_card(dev):
@@ -587,16 +716,20 @@ def test_well_kernels_f64_contract_and_spgemm(dev):
 
 
 def test_well_kernels_refuse(dev):
+    """Complex values run (a complex WELL on the complex kernels, a real
+    WELL times a complex x on the real ones); a dtype no kernel takes,
+    other devices, a wrong length and a corrupt layout raise."""
     a = _permuted_poisson(8, torch.float32, dev)
     wc = csr_to_well(a.map_values(lambda v: v.to(torch.complex64)))
     x = torch.ones(64, dtype=torch.complex64, device=dev)
-    with pytest.raises(TypeError, match="complex WELL on CUDA"):
-        well_spmv(wc, x)
-    with pytest.raises(TypeError, match="complex WELL on CUDA"):
-        well_spmm_planes(wc, x[None, :])
+    ref = well_spmv_plain(wc, x)
+    assert _rel(well_spmv(wc, x), ref) <= 1e-5
+    assert _rel(well_spmm_planes(wc, x[None, :])[0], ref) <= 1e-5
     w = csr_to_well(a)
-    with pytest.raises(TypeError, match="complex WELL on CUDA"):
-        well_spmv(w, x)
+    assert _rel(well_spmv(w, x), ref) <= 1e-5
+    half = csr_to_well(a.map_values(lambda v: v.half()))
+    with pytest.raises(TypeError, match="takes float32, float64, complex64"):
+        well_spmv(half, torch.ones(64, dtype=torch.half, device=dev))
     with pytest.raises(ValueError, match="different devices"):
         well_spmv(w, torch.ones(64))
     with pytest.raises(ValueError, match="dimension mismatch"):
@@ -608,6 +741,153 @@ def test_well_kernels_refuse(dev):
         well_spmv(bad, torch.ones(64, device=dev))
     with pytest.raises(ValueError, match="sliced layout"):
         well_spmm(bad, torch.ones((64, 2), device=dev))
+
+
+@pytest.mark.parametrize("dtype", COMPLEX, ids=["c64", "c128"])
+@pytest.mark.parametrize("case", WELL_CASES)
+def test_well_spmv_kernel_complex_matches_plain(dev, dtype, case):
+    """Complex kernel C against its plain version and the CSR SpMV, and a
+    real WELL times a complex x (real kernel D on the (nc, 2) block, each
+    part bitwise real kernel C)."""
+    real = _well_case(case, torch.float64, dev)
+    a = _phased(real, dtype)
+    w = csr_to_well(a)
+    x = _crandn(np.random.default_rng(15), a.shape[1], dtype, dev)
+    before = well_spmv.launches
+    y = well_spmv(w, x)
+    torch.cuda.synchronize()
+    assert well_spmv.launches == before + 1
+    assert y.dtype == dtype and y.shape == (a.shape[0],)
+    if a.nnz == 0:
+        assert not bool(y.any())
+        return
+    assert _rel(y, well_spmv_plain(w, x)) <= RTOL[dtype]
+    assert _rel(y, st.spmv(a, x)) <= RTOL[dtype]
+    assert torch.equal(well_spmv(w, x), y)
+    rdtype = torch.float64 if dtype == torch.complex128 else torch.float32
+    wr = csr_to_well(real.map_values(lambda v: v.to(rdtype)))
+    before = (well_spmv.launches, well_spmm.launches)
+    yr = well_spmv(wr, x)
+    assert (well_spmv.launches, well_spmm.launches) == \
+        (before[0], before[1] + 1)
+    assert yr.dtype == dtype and _rel(yr, well_spmv_plain(wr, x)) <= \
+        RTOL[dtype]
+    assert torch.equal(yr.real, well_spmv(wr, x.real.contiguous()))
+    assert torch.equal(yr.imag, well_spmv(wr, x.imag.contiguous()))
+
+
+@pytest.mark.parametrize("dtype", COMPLEX, ids=["c64", "c128"])
+@pytest.mark.parametrize("m", [1, 2, 5, 16, 80, 96])
+@pytest.mark.parametrize("case", WELL_CASES)
+def test_well_spmm_kernel_complex_matches_plain(dev, dtype, m, case):
+    """Complex kernel D in both layouts against the plain version, m from
+    one lane a row past the five chunks a lane holds; every column bitwise
+    complex kernel C on it."""
+    w = csr_to_well(_phased(_well_case(case, torch.float64, dev), dtype))
+    xp = _crandn(np.random.default_rng(16), (m, w.shape[1]), dtype, dev)
+    before = well_spmm.launches
+    y = well_spmm_planes(w, xp)
+    yc = well_spmm(w, xp.T)          # column-major view: strides (1, nc)
+    yc2 = well_spmm(w, xp.T.contiguous())
+    torch.cuda.synchronize()
+    assert well_spmm.launches == before + 3
+    ref = well_spmm_planes_plain(w, xp)
+    assert y.shape == (m, w.shape[0]) and yc.shape == (w.shape[0], m)
+    for got in (y, yc.T, yc2.T):
+        assert _rel(got, ref) <= RTOL[dtype]
+    if case in ("permuted_64", "skewed_3000x5000"):
+        for t in range(m):
+            col = well_spmv(w, xp[t])
+            assert torch.equal(yc2[:, t], col) and torch.equal(y[t], col), t
+
+
+@pytest.mark.parametrize("dtype", COMPLEX, ids=["c64", "c128"])
+def test_well_spmm_complex_offset_x_and_real_operator(dev, dtype):
+    """A complex X one element past an aligned boundary (scalar lanes for
+    complex64) matches the aligned call and reads nothing outside it; a
+    real WELL times a complex X in both layouts is one launch of real
+    kernel D, each part bitwise the real kernel on it."""
+    real = _well_case("permuted_64", torch.float64, dev)
+    w = csr_to_well(_phased(real, dtype))
+    nc = w.shape[1]
+    rng = np.random.default_rng(17)
+    for m in (2, 5, 16):
+        x = _crandn(rng, (nc, m), dtype, dev)
+        flat = torch.full((nc * m + 4,), complex("nan+nanj"), dtype=dtype,
+                          device=dev)
+        xm = flat[1:1 + nc * m].view(nc, m)
+        xm.copy_(x)
+        y = well_spmm(w, xm)
+        assert bool(torch.isfinite(y).all())
+        assert torch.equal(y, well_spmm(w, x))
+    rdtype = torch.float64 if dtype == torch.complex128 else torch.float32
+    wr = csr_to_well(real.map_values(lambda v: v.to(rdtype)))
+    x = _crandn(rng, (nc, 16), dtype, dev)
+    before = well_spmm.launches
+    y = well_spmm(wr, x)
+    yp = well_spmm_planes(wr, x.T.contiguous())
+    assert well_spmm.launches == before + 2
+    assert _rel(y, well_spmm_planes_plain(wr, x.T).T) <= RTOL[dtype]
+    assert torch.equal(yp, y.T)
+    assert torch.equal(y.real, well_spmm(wr, x.real.contiguous()))
+    assert torch.equal(y.imag, well_spmm(wr, x.imag.contiguous()))
+
+
+def test_feast_complex_operator_runs_the_complex_kernels(dev, monkeypatch):
+    """FEAST on a complex Hermitian operator (the gauge-transformed 24**2
+    Poisson operator, whose spectrum is Poisson's): banded, it takes the
+    DIA route and complex kernel A's multi-RHS form; permuted, the WELL
+    route and complex kernel D; ``ops.linalg.spmm`` is never reached."""
+    from sparse_linear_tpu_torch.eig import pipeline
+    from sparse_linear_tpu_torch.eig.feast import INFO_OK, FeastParams, eigsh
+    from sparse_linear_tpu_torch.ops import linalg
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("ops.linalg.spmm reached on CUDA")
+
+    monkeypatch.setattr(linalg, "spmm", refuse)
+    g = 24
+    lam1 = 4 * np.sin(np.arange(1, g + 1) * np.pi / (2 * (g + 1))) ** 2
+    lam = np.sort((lam1[:, None] + lam1[None, :]).ravel())
+    emax = float((lam[19] + lam[20]) / 2)
+    a = _gauge_poisson(g, 0.3, dev)
+    assert a.is_hermitian(tol=0.0)
+    before = dia_spmm_kernel.launches
+    res = eigsh(32, (0.0, emax), a, FeastParams(
+        tol=1e-10, backend="multifrontal", dims=(g, g)))
+    assert dia_spmm_kernel.launches > before
+    assert pipeline.last_run["routes"] == ("dia", "identity")
+    assert res.info == INFO_OK
+    np.testing.assert_allclose(res.values, lam[:20], rtol=1e-10)
+    coo = a.tocoo()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    perm = torch.randperm(g * g, device=dev, generator=gen)
+    ap = st.from_triples((g * g, g * g), perm[coo.row.long()],
+                         perm[coo.col.long()], coo.data).tocsr()
+    before = well_spmm.launches
+    res = eigsh(32, (0.0, emax), ap, FeastParams(tol=1e-10,
+                                                 backend="multifrontal"))
+    assert well_spmm.launches > before
+    assert pipeline.last_run["routes"] == ("well", "identity")
+    assert res.info == INFO_OK
+    np.testing.assert_allclose(res.values, lam[:20], rtol=1e-10)
+
+
+def _gauge_poisson(g, theta, dev):
+    """The g**2 five-point operator with the phase e^{i theta} on its
+    x-links, complex128: kron(I, T_theta) + kron(T_0, I), where T_theta is
+    the 1D operator with -e^{i theta} above its diagonal and -e^{-i theta}
+    below."""
+    def chain(th):
+        lo, hi = list(range(g - 1)), list(range(1, g))
+        return st.from_triples(
+            (g, g), list(range(g)) + lo + hi, list(range(g)) + hi + lo,
+            [2.0] * g + [-np.exp(1j * th)] * (g - 1)
+            + [-np.exp(-1j * th)] * (g - 1),
+            dtype=np.complex128, device=dev).tocsr()
+
+    i = st.eye(g, dtype=torch.complex128, device=dev)
+    return st.kron(i, chain(theta)) + st.kron(chain(0.0), i)
 
 
 # ------------------------------------------------ multifrontal direct solver

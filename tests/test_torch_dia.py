@@ -327,6 +327,12 @@ def test_dia_spmm_kernels_vs_jax(which, m):
     (2, 4, False, True, (1, 2)),
     (3, 4, False, True, (1, 4)),
     (80, 8, False, True, (1, 4)),
+    (1, 16, True, False, (1, 1)),     # complex128: one value a vector
+    (5, 16, True, False, (8, 1)),
+    (16, 16, True, False, (8, 2)),
+    (80, 16, True, False, (8, 4)),    # FEAST's m, complex: tiled
+    (80, 16, False, True, (1, 4)),
+    (80, 8, True, False, (8, 4)),     # complex64: as float64
 ])
 def test_dia_spmm_plan(m, itemsize, vector, planes, plan):
     """Kernel A's multi-RHS geometry by m: column-major, the fewest lanes
@@ -344,6 +350,55 @@ def test_dia_spmm_plan(m, itemsize, vector, planes, plan):
     # every lane group but the widest covers m in one pass
     assert lanes * per_lane * chunks >= m or \
         lanes * per_lane * itemsize == spmv_dia._ROW_BYTES
+
+
+def _complex_dia(which, rng, dtype):
+    """A complex DIA (each stored value turned by a seeded random phase)
+    in the JAX package and the port."""
+    j = _spmm_operator(which, rng)
+    phase = np.exp(1j * rng.uniform(0, 2 * np.pi, j.data.shape))
+    j = jst.DIA(data=jnp.asarray((np.asarray(j.data) * phase).astype(dtype)),
+                shape=j.shape, offsets=j.offsets)
+    return j, to_port(j)
+
+
+@pytest.mark.parametrize("dtype", [np.complex128, np.complex64],
+                         ids=["c128", "c64"])
+@pytest.mark.parametrize("which", ["square", "tall", "flat"])
+def test_dia_complex_kernels_vs_jax(which, dtype):
+    """Kernel A and its multi-RHS form on a complex operator (their plain
+    versions on CPU tensors) against the JAX XLA forms, within 1e-12 /
+    1e-5 relative; a real operator times a complex x or X (complex result,
+    x's imaginary part kept) and a complex operator times a real x."""
+    rng = np.random.default_rng(33)
+    j, t = _complex_dia(which, rng, dtype)
+    tol = 1e-12 if dtype == np.complex128 else 1e-5
+    nr, nc = j.shape
+
+    def rel(got, want):
+        want = np_of(want)
+        return np.abs(np_of(got) - want).max() / np.abs(want).max()
+
+    x = (rng.standard_normal(nc) + 1j * rng.standard_normal(nc)).astype(dtype)
+    y = dia_spmv_kernel(t, torch.as_tensor(x), alpha=0.5)
+    assert y.dtype == t.data.dtype
+    assert rel(y, 0.5 * np_of(jspmv.dia_spmv(j, jnp.asarray(x)))) <= tol
+    xm = (rng.standard_normal((nc, 5))
+          + 1j * rng.standard_normal((nc, 5))).astype(dtype)
+    assert rel(dia_spmm_kernel(t, torch.as_tensor(xm)),
+               jspmv.dia_spmm(j, jnp.asarray(xm))) <= tol
+    assert rel(dia_spmm_planes_kernel(t, torch.as_tensor(xm.T.copy())),
+               jspmv.dia_spmm_planes(j, jnp.asarray(xm.T))) <= tol
+    xr = xm.real.copy()
+    assert rel(dia_spmm_kernel(t, torch.as_tensor(xr)),
+               jspmv.dia_spmm(j, jnp.asarray(xr))) <= tol
+    jr = jst.DIA(data=jnp.real(j.data), shape=j.shape, offsets=j.offsets)
+    tr = to_port(jr)
+    yr = dia_spmm_kernel(tr, torch.as_tensor(xm))
+    assert yr.dtype == t.data.dtype
+    assert rel(yr, jspmv.dia_spmm(jr, jnp.asarray(xm))) <= tol
+    assert rel(dia_spmv_kernel(tr, torch.as_tensor(x)),
+               jspmv.dia_spmv(jr, jnp.asarray(x))) <= tol
 
 
 def test_dia_spmm_kernel_wrapper_checks():

@@ -98,6 +98,16 @@ def _case(name):
         m0 = len(want) + 4
         return (a, sl.diag(jnp.asarray(d)), m0, (0.3, 1.2), {"tol": 1e-13},
                 want, rng.standard_normal((n, m0)))
+    if name == "gauge_12_multifrontal":
+        # complex Hermitian, banded, with Poisson's spectrum: the lowest 10
+        # pairs through the JAX package's native complex path
+        lam = _poisson_spectrum(G)
+        emax = float((lam[9] + lam[10]) / 2)
+        guess = (rng.standard_normal((G * G, 16))
+                 + 1j * rng.standard_normal((G * G, 16)))
+        return (_jax_gauge_poisson(G), None, 16, (0.0, emax),
+                {"tol": 1e-11, "backend": "multifrontal", "dims": (G, G),
+                 "complex_strategy": "native"}, lam[:10], guess)
     assert name == "poisson_12_multifrontal"
     lam = _poisson_spectrum(G)
     want = lam[lam <= 1.5]
@@ -107,7 +117,30 @@ def _case(name):
 
 
 CASES = ["2x2", "2x2_complex", "laplacian_window", "diagonal_pencil",
-         "poisson_12_multifrontal"]
+         "poisson_12_multifrontal", "gauge_12_multifrontal"]
+
+THETA = 0.3  # the gauge operator's phase on the x-links
+
+
+def _gauge_triples(g, theta=THETA):
+    """(rows, cols, values) of the g**2 five-point operator with the phase
+    e^{i theta} on its x-links: A[p, p + e_x] = -e^{i theta}, A[p + e_x,
+    p] = -e^{-i theta}.  It is D A_0 D^H with D = diag(e^{i theta x_p})
+    unitary: complex Hermitian, banded, with Poisson's spectrum."""
+    p = np.arange(g * g)
+    x = p % g
+    right, up = p[x < g - 1], p[p < g * g - g]
+    rows = np.concatenate([p, right, right + 1, up, up + g])
+    cols = np.concatenate([p, right + 1, right, up + g, up])
+    vals = np.concatenate([np.full(g * g, 4.0 + 0j),
+                           np.full(right.size, -np.exp(1j * theta)),
+                           np.full(right.size, -np.exp(-1j * theta)),
+                           np.full(2 * up.size, -1.0 + 0j)])
+    return rows, cols, vals
+
+
+def _jax_gauge_poisson(g):
+    return sl.from_triples((g * g, g * g), *_gauge_triples(g)).tocsr()
 
 
 def _solve(pkg, name):
@@ -375,6 +408,28 @@ def test_contour_modes_agree(monkeypatch, dtype):
                                    atol=0)
 
 
+def test_clear_pipeline_cache_frees_the_factors_at_once():
+    """Clearing the cache releases the factor sets by reference counting
+    alone (the pipeline <-> contour cycle is cut), with the cycle
+    collector off: on the card that memory is free for the next plan."""
+    import gc
+    import weakref
+
+    pipeline.clear_pipeline_cache()
+    a = tgrids.laplacian_1d(24, dtype=torch.float64, device="cpu")
+    eigsh(8, (0.5, 1.5), a, FeastParams(tol=1e-10))
+    (pipe,) = pipeline._PIPELINE_CACHE.values()
+    refs = [weakref.ref(c) for c in pipe.contours.values()]
+    assert refs
+    del pipe
+    gc.disable()
+    try:
+        pipeline.clear_pipeline_cache()
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
 def test_plan_by_bytes(monkeypatch):
     """The auto plan takes the first mode whose bytes fit the budget."""
     pipe, _ = pipeline._get_pipeline(_poisson_port(), st.eye(
@@ -409,8 +464,50 @@ def test_routes_of_the_structured_operators():
                             (g * g, 3)))
     np.testing.assert_allclose(np_of(op(x)), np_of(ap.todense()) @ np_of(x),
                                atol=1e-13)
-    assert pipeline._structured_op(
-        a.map_values(lambda v: v.to(torch.complex128))).route == "csr"
+    # a complex operator takes the route a real one does: DIA when banded,
+    # else WELL (the complex kernels on the card, never ops.linalg.spmm)
+    for real, route in ((a, "dia"), (ap, "well")):
+        ac = real.map_values(lambda v: v.to(torch.complex128) * (1 + 0.5j))
+        op = pipeline._structured_op(ac)
+        assert op.route == route
+        rng = np.random.default_rng(47)
+        xc = torch.as_tensor(rng.standard_normal((ac.shape[1], 3))
+                             + 1j * rng.standard_normal((ac.shape[1], 3)))
+        np.testing.assert_allclose(np_of(op(xc)),
+                                   np_of(ac.todense()) @ np_of(xc),
+                                   atol=1e-13)
+
+
+@pytest.mark.parametrize("permuted", [False, True], ids=["banded",
+                                                         "permuted"])
+def test_complex_operator_never_reaches_the_csr_spmm(monkeypatch,
+                                                     permuted):
+    """FEAST on the complex Hermitian gauge operator: banded it takes the
+    "dia" route (complex kernel A's multi-RHS form on the card), permuted
+    the "well" route (complex kernel D); ``ops.linalg.spmm`` is never
+    called; the spectrum is Poisson's."""
+    from sparse_linear_tpu_torch.ops import linalg
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("ops.linalg.spmm reached for an operator")
+
+    monkeypatch.setattr(linalg, "spmm", refuse)
+    g = 8
+    rows, cols, vals = _gauge_triples(g)
+    if permuted:
+        perm = np.random.default_rng(48).permutation(g * g)
+        rows, cols = perm[rows], perm[cols]
+    a = st.from_triples((g * g, g * g), rows, cols, vals,
+                        device="cpu").tocsr()
+    lam = _poisson_spectrum(g)
+    emax = float((lam[5] + lam[6]) / 2)
+    res = eigsh(12, (0.0, emax), a, FeastParams(
+        tol=1e-11, backend="multifrontal",
+        dims=None if permuted else (g, g)))
+    assert pipeline.last_run["routes"] == (
+        ("well" if permuted else "dia"), "identity")
+    assert res.info == INFO_OK
+    np.testing.assert_allclose(np.asarray(res.values), lam[:6], rtol=1e-10)
 
 
 @pytest.mark.parametrize("full_rows", [[0, 32, 64, 96], [1, 50, 127]])
@@ -418,7 +515,7 @@ def test_low_fill_real_operator_takes_the_well_route(monkeypatch,
                                                      full_rows):
     """A real operator that is not banded goes to kernel D's route however
     low its WELL fill (one full row a slice: the layout's lowest, 1/32);
-    the plain ``ops.linalg.spmm`` is kept for complex operators only."""
+    the plain ``ops.linalg.spmm`` is on no FEAST route."""
     from sparse_linear_tpu_torch.formats.well import csr_to_well
     from sparse_linear_tpu_torch.ops import linalg
 

@@ -224,7 +224,7 @@ def test_jax_state_round_trip(kind):
     if kind != "dia":
         assert st.check_matrix(t)
     with pytest.raises(ValueError, match="unknown format kind"):
-        from_arrays("ell", {}, (1, 1))
+        from_arrays("hyb", {}, (1, 1))
 
 
 def test_constructors_eye_zeros_diag():

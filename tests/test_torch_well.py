@@ -323,6 +323,12 @@ def test_well_spmm_planes_m40_matches_jax_resident(dtype):
     (80, 4, True, False, (8, 3)),
     (96, 8, True, False, (8, 5)),    # past five chunks: m tiled
     (160, 4, True, False, (8, 5)),
+    (1, 16, True, False, (1, 1)),    # complex128: one value a vector
+    (3, 16, True, False, (4, 1)),
+    (16, 16, True, False, (8, 2)),
+    (80, 16, True, False, (8, 5)),   # FEAST's m, complex: m tiled twice
+    (80, 16, True, True, (8, 2)),
+    (3, 8, False, False, (4, 1)),    # complex64, odd m: scalar lanes
 ])
 def test_spmm_plan(m, itemsize, vector, planes, plan):
     """Kernel D's geometry by m: the fewest lanes (a power of two) that
@@ -366,6 +372,31 @@ def test_well_spmm_complex_and_vector():
     assert _rel(tk.well_spmm(tw, torch.as_tensor(x)), dense @ x) <= 1e-5
     y1 = tk.well_spmm(tw, torch.as_tensor(x[:, 0]))
     assert y1.ndim == 1 and _rel(y1, dense @ x[:, 0]) <= 1e-5
+
+
+def test_well_complex128_matches_jax_planes():
+    """A complex128 WELL (one complex tensor in the port; two f64 value
+    planes, real kernel passes, in the JAX package) times a complex x and a
+    complex X (m = 40 on the resident route, both layouts), and a
+    complex64 WELL times a real x, within 1e-12 / 1e-5."""
+    rng = np.random.default_rng(14)
+    j = permuted_poisson(G, np.complex128)
+    jw, tw = j_csr_to_well(j), csr_to_well(to_port(j))
+    assert tw.vals.dtype == torch.complex128
+    x = rng.standard_normal(N) + 1j * rng.standard_normal(N)
+    yt = tk.well_spmv(tw, torch.as_tensor(x))
+    assert yt.dtype == torch.complex128
+    assert _rel(yt, jk.well_spmv(jw, jnp.asarray(x))) <= 1e-12
+    xp = rng.standard_normal((40, N)) + 1j * rng.standard_normal((40, N))
+    yj = jk.well_spmm_planes(jw, jnp.asarray(xp), _force="resident")
+    assert _rel(tk.well_spmm_planes(tw, torch.as_tensor(xp)), yj) <= 1e-12
+    assert _rel(tk.well_spmm(tw, torch.as_tensor(xp.T)).T, yj) <= 1e-12
+    j64 = permuted_poisson(G, np.complex64)
+    t64 = csr_to_well(to_port(j64))
+    xr = rng.standard_normal(N).astype(np.float32)
+    y64 = tk.well_spmv(t64, torch.as_tensor(xr))
+    assert y64.dtype == torch.complex64
+    assert _rel(y64, np_of(to_port(j64).todense()) @ xr) <= 1e-5
 
 
 def test_well_spmm64_planes_matches_jax():
