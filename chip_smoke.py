@@ -117,8 +117,42 @@ NVIDIA GPU:
    (the WELL route, complex kernel D), with ``ops.linalg.spmm`` made to
    raise, each against the analytic spectrum (<= 1e-10, epsout <=
    1e-10), peak < 75 GB.
+10. Chebyshev at full size (``chebyshev_phase``, ``eig.chebyshev.
+   eigsh_filtered`` in f64 with its default degree and passes), from its
+   own random stream, the launch counts of kernel A's multi-RHS form and
+   of kernel D set to 0 before and read after, ``ops.linalg.spmm`` made to
+   raise: the 20 lowest pairs of the 65,536-dof operator (m0 = 40) in
+   stencil order (the DIA route) and relabelled by a seeded permutation
+   (the WELL route), cold and warm, each INFO_OK with every eigenvalue
+   within 1e-10 of the analytic spectrum and every residual through the
+   plain CSR product <= 1e-8; the 50 lowest pairs at 1,048,576 dof (m0 =
+   64), recorded as they come (the JAX module documents a stall near 1e-3
+   there on its TPU) and held to an honest result: finite, INFO_OK or
+   INFO_NOT_CONVERGED, reported residuals within 1e-3 relative of the
+   recomputed ones, each value within its residual of an analytic
+   eigenvalue (and the full checks if INFO_OK); a line a pass with its
+   time and epsout; each run's kernel launched at least degree x filter
+   passes times; after each run its kernel against the plain version
+   (``dia_spmm`` / ``well_spmm_planes_plain``) on the operator the route
+   builds, at the widths the solver gives it (1 for the Lanczos bound, m0
+   for the filter and Rayleigh-Ritz, 2 m0 for the [X | R] pass), max rel
+   err <= 1e-12, these launches left out of the counts; peak < 75 GB.
+11. Checkpoints and profiling (``checkpoint_phase``), every file in a
+   temporary directory removed after: phase 7's f32 Cholesky factors of
+   the 2D operator saved and loaded (load re-derives the schedule with
+   ``analyze``, timed apart), every block and a solve bitwise the
+   originals' (under torch's deterministic algorithms); a dense-backend
+   f64 LU at n = 4096, solve bitwise; phase 6's permuted 2048**2 WELL,
+   fields and SpMV bitwise, load time beside ``csr_to_well``'s; phase 8's
+   lowest-50 subspace, bitwise, then ``eigsh(..., guess=loaded)`` INFO_OK
+   in no more loops than the cold run; one filter pass of phase 10's first
+   case under ``profiling.trace`` in ``profiling.annotate``, the trace
+   file naming the span and ``dia_spmm_kernel``, its wall with and without
+   the profiler and ``op_timings``.  File bytes, save and load seconds.
 
-Prints one JSON line of the FEAST runs of phases 8 and 9 (``feast``: wall cold / warm,
+Prints one JSON line of the Chebyshev runs of phase 10 (``chebyshev``),
+one of phase 11 (``checkpoints``), one JSON line of the FEAST runs of
+phases 8 and 9 (``feast``: wall cold / warm,
 loops, epsout, errors, mode, split, peak GB), one JSON line of the direct
 solver's cases (``direct``: analyze s,
 factor s, solve ms, refinement steps, residual, peak GB, levels, buckets,
@@ -127,7 +161,8 @@ fronts), one JSON line of the kernels (``ms``, ``plain_ms``, ``bound_ms``,
 no library call computes the function, ``launches`` from the main paths,
 ``max_abs_err``; the four complex128 instantiations as ``dia_spmv_c128``,
 ``dia_spmm_c128``, ``well_spmv_c128`` and ``well_spmm_c128``, launches from
-phase 9), then as the last line
+phase 9; ``launches_phase10`` beside the f64 ``dia_spmm`` and
+``well_spmm`` entries' own), then as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
 is then non-zero and the last line is not printed.  Without a CUDA device,
 or without the package beside this script, it fails before any result.
@@ -216,11 +251,13 @@ def digest(t) -> str:
 
 
 def direct_solver_phase(dev, card: str, seed: int,
-                        grids=(1024, 64, 192)) -> list:
+                        grids=(1024, 64, 192), keep=None) -> list:
     """Phase 7: the multifrontal direct solver through ``solve.api`` at
     full width: ``grids`` are the 2D operator's, the 3D one's and the
     contour's.  Returns the rows of the ``direct`` JSON line; any failed
-    check raises."""
+    check raises.  With ``keep`` (a dict) the 2D f32 Cholesky factors are
+    copied to the host into ``keep["cholesky"]``, with their grid, for
+    phase 11."""
     import torch
 
     import sparse_linear_tpu_torch as st
@@ -333,8 +370,11 @@ def direct_solver_phase(dev, card: str, seed: int,
     a64 = poisson_2d(g, dtype=f64, device=dev)
     sym, analyze_s = wall(lambda: api.analyze(a32, backend="multifrontal",
                                               dims=(g, g)))
-    refined_case("2d cholesky f32", a32, a64, sym, analyze_s,
-                 kind="cholesky")
+    f = refined_case("2d cholesky f32", a32, a64, sym, analyze_s,
+                     kind="cholesky")
+    if keep is not None:
+        keep["cholesky"] = {"grid": g, "factors": f.to("cpu")}
+    del f
     torch.cuda.empty_cache()
     refined_case("2d lu f32 pivot_eps=1e-10", a32, a64, sym, analyze_s,
                  kind="lu", pivot_eps=1e-10)
@@ -1183,10 +1223,14 @@ def complex_phase(dev, card, seed, b_real, dia_its, well_its,
     return rows, launches, counts
 
 
-def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64)) -> list:
+def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64),
+                keep=None) -> list:
     """Phase 8: FEAST through ``eig.feast`` at full size: ``grids`` are the
     36,864-dof operator's, the 1,048,576-dof one's and the slicing one's.
-    Returns the rows of the ``feast`` JSON line; any failed check raises."""
+    Returns the rows of the ``feast`` JSON line; any failed check raises.
+    With ``keep`` (a dict) the subspace of the 1,048,576-dof lowest-50
+    window is copied to the host for phase 11 with its grid, window,
+    parameters and the loops of its cold run (``keep["subspace"]``)."""
     import numpy as np
     import torch
 
@@ -1307,7 +1351,13 @@ def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64)) -> list:
     pb = FeastParams(tol=1e-10, dims=(gb, gb), backend="multifrontal")
     torch.cuda.reset_peak_memory_stats(dev)
     emax_b = float((lam_b[49] + lam_b[50]) / 2)
-    solve(f"lowest 50 of {gb}^2", a_b, (0.0, emax_b), lam_b[:50], pb, warm=1)
+    res = solve(f"lowest 50 of {gb}^2", a_b, (0.0, emax_b), lam_b[:50], pb,
+                warm=1)
+    if keep is not None:
+        keep["subspace"] = {"grid": gb, "subspace": res.subspace.cpu(),
+                            "interval": (0.0, emax_b), "params": pb,
+                            "cold_loops": len(rows[-1]["split"])}
+    del res
     lo = float((lam_b[99] + lam_b[100]) / 2)
     hi = float((lam_b[149] + lam_b[150]) / 2)
     solve(f"interior [lambda_100, lambda_150) of {gb}^2", a_b, (lo, hi),
@@ -1322,6 +1372,486 @@ def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64)) -> list:
     del a_b
     pipeline.clear_pipeline_cache()
     torch.cuda.empty_cache()
+    return rows
+
+
+def chebyshev_phase(dev, card: str, seed: int, parity_abs: dict,
+                    grids=(256, 1024),
+                    windows=((20, 40), (50, 64))) -> tuple:
+    """Phase 10: the Chebyshev-filtered eigensolver
+    (``eig.chebyshev.eigsh_filtered``, f64) at full size.  ``grids`` are
+    the 65,536-dof operator's and the 1,048,576-dof one's, ``windows`` the
+    (pairs, m0) of each.  (a) the lowest window of the stencil-order
+    operator (kernel A's multi-RHS form), (b) the same operator relabelled
+    by a seeded permutation (kernel D), each cold and warm; (c) the lowest
+    window at 1M dof, recorded as it comes (the JAX module documents a
+    stall near 1e-3 there on its TPU), held to an honest result.  After
+    each run the route's kernel is held against its plain version at the
+    run's widths (max abs errors into ``parity_abs``).  Returns (rows of
+    the ``chebyshev`` JSON line, {wrapper name: launches}); any failed
+    check raises."""
+    import numpy as np
+    import torch
+
+    import sparse_linear_tpu_torch as st
+    from sparse_linear_tpu_torch.eig import chebyshev
+    from sparse_linear_tpu_torch.eig.feast import INFO_NOT_CONVERGED, INFO_OK
+    from sparse_linear_tpu_torch.formats.structured import csr_to_dia
+    from sparse_linear_tpu_torch.kernels.spmv import dia_spmm
+    from sparse_linear_tpu_torch.kernels.spmv_dia import dia_spmm_kernel
+    from sparse_linear_tpu_torch.kernels.spmv_well import (
+        well_spmm,
+        well_spmm_planes_plain,
+    )
+    from sparse_linear_tpu_torch.ops.build import trim
+    from sparse_linear_tpu_torch.utils.grids import poisson_2d
+
+    f64 = torch.float64
+    cgen = torch.Generator(device=dev).manual_seed(seed + 6)
+    # the parity blocks draw from their own stream: the runs see the
+    # permutation and start blocks they saw without them
+    xgen = torch.Generator(device=dev).manual_seed(seed + 9)
+    rows = []
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    dia_spmm_kernel.launches = 0
+    well_spmm.launches = 0
+
+    def residuals(a, res):
+        """Each pair's ||A x - lambda x|| / ||x|| through the plain CSR
+        product (``ops.linalg.spmm``), independent of the solver's."""
+        x = res.vectors
+        lam = torch.as_tensor(res.values, device=dev)
+        r = torch.linalg.vector_norm(st.spmm(a, x) - x * lam[None, :], dim=0)
+        return (r / torch.linalg.vector_norm(x, dim=0)).cpu().numpy()
+
+    def kernel_parity(name, a, route, ms):
+        """The route's kernel against its plain version on the operator
+        the route builds (``eig.pipeline._structured_op``: trimmed, then
+        DIA at up to 64 diagonals, else WELL), at widths ``ms`` of the
+        column-major blocks the solver gives it.  The launches made here
+        are taken back out of the wrapper's count.  Returns {m: max rel
+        err}."""
+        csr = trim(a.tocsr())
+        if route == "dia":
+            op, kern, plain = csr_to_dia(csr, max_diags=64), \
+                dia_spmm_kernel, dia_spmm
+        else:
+            op, kern = st.csr_to_well(csr), well_spmm
+
+            def plain(w, x):
+                return well_spmm_planes_plain(w, x.T).T
+        del csr
+        saved = kern.launches
+        out = {}
+        for m in ms:
+            x = torch.randn((a.shape[1], m), dtype=f64, device=dev,
+                            generator=xgen)
+            err, rel = max_err(kern(op, x), plain(op, x))
+            out[m] = rel
+            parity_abs[f"{kern.__name__} phase 10 {name} {f64} m={m}"] = err
+            print(f"phase 10 parity {kern.__name__} {name} {f64} m={m}: "
+                  f"max rel err {rel:.3e} (max abs {err:.3e}, tol 1e-12)",
+                  flush=True)
+            require(rel <= 1e-12, f"{kern.__name__} {name} m={m} disagrees "
+                    f"with its plain version: {rel}")
+            del x
+        kern.launches = saved
+        del op
+        torch.cuda.empty_cache()
+        return out
+
+    def run(name, a, g, k, m0, wrapper, warm=True, converge=True):
+        lam = spectrum_2d(g)
+        interval = (0.0, float((lam[k - 1] + lam[k]) / 2))
+        scale = max(abs(interval[0]), abs(interval[1]), 1.0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev) / 1e9
+        before = wrapper.launches
+        with no_csr_spmm():
+            res, cold_s = timed(lambda: chebyshev.eigsh_filtered(
+                m0, interval, a))
+            split = dict(chebyshev.last_run)
+            launched = wrapper.launches - before
+            warm_s = None
+            if warm:
+                res = None
+                res, warm_s = timed(lambda: chebyshev.eigsh_filtered(
+                    m0, interval, a))
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        vals = np.asarray(res.values)
+        finite = bool(np.isfinite(vals).all()
+                      and np.isfinite(res.residuals).all()
+                      and torch.isfinite(res.vectors).all())
+        r_abs = residuals(a, res) if res.n_found else np.zeros(0)
+        # distance of each returned value to the nearest analytic one
+        i = np.clip(np.searchsorted(lam, vals), 1, lam.size - 1)
+        near = np.minimum(np.abs(vals - lam[i - 1]), np.abs(vals - lam[i]))
+        err = float(np.abs(np.sort(vals) - lam[:k]).max() / scale) \
+            if res.n_found == k else math.inf
+        filt = [p["filter_s"] for p in split["passes"]
+                if p["kind"] == "filter"]
+        row = {"name": name, "n": a.shape[0], "pairs": k, "m0": m0,
+               "interval": list(interval), "route": split["route"],
+               "lam_ub": split["lam_ub"], "degree": split["degree"],
+               "passes": res.iterations, "info": res.info,
+               "n_found": res.n_found, "epsout": res.epsout,
+               "cold_s": cold_s, "warm_s": warm_s,
+               "filter_pass_s": statistics.median(filt) if filt else None,
+               "filter_passes": len(filt), "launches": launched,
+               "max_err_scaled": err,
+               "max_residual": float(r_abs.max()) if r_abs.size else None,
+               "peak_gb": peak, "held_gb": held}
+        rows.append(row)
+        warm_txt = "" if warm_s is None else f", warm {warm_s:.3f} s"
+        print(f"phase 10 [{card}] {name}: n {a.shape[0]}, route "
+              f"{row['route']}, lam_ub {row['lam_ub']:.9f}, degree "
+              f"{row['degree']}; {res.iterations} passes ({len(filt)} "
+              f"filter, median {row['filter_pass_s'] or 0:.4f} s a filter "
+              f"pass), info {res.info}, {res.n_found} of {k} pairs, epsout "
+              f"{res.epsout:.3e}, against the analytic spectrum {err:.3e} "
+              f"(tol 1e-10), residual through the CSR product "
+              f"{row['max_residual'] or 0:.3e} (tol 1e-8); cold "
+              f"{cold_s:.3f} s{warm_txt}; {wrapper.__name__} launches "
+              f"{launched} (cold run); peak {peak:.3f} GB ({held:.3f} GB "
+              f"of it held before the run)", flush=True)
+        for i, p in enumerate(split["passes"]):
+            print(f"phase 10 [{card}] {name} cold pass {i}: {p['kind']}, "
+                  f"{p['s']:.4f} s (filter {p['filter_s']:.4f} s), "
+                  f"{p['m_found']} pairs inside, epsout {p['epsout']:.3e}",
+                  flush=True)
+        require(finite, f"{name}: non-finite result")
+        # a filter pass is ``degree`` products; the bound, Rayleigh-Ritz
+        # and the [X | R] passes add theirs
+        require(launched >= row["degree"] * row["filter_passes"] >= 1,
+                f"{name}: {wrapper.__name__} launched {launched} times, "
+                f"{row['filter_passes']} filter passes of degree "
+                f"{row['degree']}")
+        require(res.vectors.device.type == "cuda", f"{name}: vectors")
+        if not converge:
+            # a run recorded as it comes is held to an honest report
+            require(res.info in (INFO_OK, INFO_NOT_CONVERGED),
+                    f"{name}: info {res.info}")
+            # the two residuals round apart by up to a few eps ||A|| m0
+            # (A X rotated by the Ritz vectors, against A x): a pair at
+            # that floor is compared with the floor, any other within 1e-3
+            floor = 64 * np.finfo(float).eps * row["lam_ub"]
+            rel = np.abs(np.asarray(res.residuals) * scale - r_abs) \
+                / np.maximum(r_abs, floor / 1e-3)
+            row["reported_vs_recomputed"] = float(rel.max()) if rel.size \
+                else 0.0
+            # a unit x with ||A x - lambda x|| = r has an eigenvalue within
+            # r of lambda (A symmetric); 8 eps ||A|| covers the rounding of
+            # the analytic values
+            slack = 8 * np.finfo(float).eps * row["lam_ub"]
+            row["eigenvalue_within_residual"] = bool(
+                np.all(near <= r_abs + slack))
+            print(f"phase 10 [{card}] {name}: reported residuals against "
+                  f"the recomputed ones {row['reported_vs_recomputed']:.3e} "
+                  f"(tol 1e-3 relative above {floor:.1e}); every value "
+                  f"within its residual "
+                  f"of an analytic eigenvalue: "
+                  f"{row['eigenvalue_within_residual']}", flush=True)
+            require(row["reported_vs_recomputed"] <= 1e-3,
+                    f"{name}: reported residuals disagree")
+            require(row["eigenvalue_within_residual"],
+                    f"{name}: a value is farther than its residual from "
+                    "the spectrum")
+        if converge or res.info == INFO_OK:
+            require(res.info == INFO_OK and res.n_found == k,
+                    f"{name}: info {res.info}, {res.n_found} pairs")
+            require(err <= 1e-10, f"{name}: eigenvalue error {err}")
+            require(float(r_abs.max()) <= 1e-8,
+                    f"{name}: residual {r_abs.max()}")
+        row["kernel_parity"] = kernel_parity(name, a, row["route"],
+                                             (1, m0, 2 * m0))
+        return row
+
+    # ---- (a) 65,536 dof, stencil order: DIA, kernel A's multi-RHS form
+    g = grids[0]
+    k, m0 = windows[0]
+    a = poisson_2d(g, dtype=f64, device=dev)
+    row = run(f"lowest {k} of {g}^2", a, g, k, m0, dia_spmm_kernel)
+    require(row["route"] == "dia", f"route {row['route']}")
+    # ---- (b) the same operator relabelled: WELL, kernel D
+    ap, _ = permuted(a, cgen)
+    row = run(f"lowest {k} of {g}^2 permuted", ap, g, k, m0, well_spmm)
+    require(row["route"] == "well", f"route {row['route']}")
+    del a, ap
+    torch.cuda.empty_cache()
+    # ---- (c) 1,048,576 dof, default degree and passes: a record
+    gb = grids[1]
+    k, m0 = windows[1]
+    a = poisson_2d(gb, dtype=f64, device=dev)
+    run(f"lowest {k} of {gb}^2", a, gb, k, m0, dia_spmm_kernel, warm=False,
+        converge=False)
+    del a
+    torch.cuda.empty_cache()
+    launches = {"dia_spmm": dia_spmm_kernel.launches,
+                "well_spmm": well_spmm.launches}
+    peak = max(r["peak_gb"] for r in rows)
+    print(f"phase 10 Chebyshev: {time.perf_counter() - t_phase:.3f} s wall, "
+          f"launches {launches}, peak device memory {peak:.3f} GB (tol 75)",
+          flush=True)
+    require(peak < 75.0, f"phase 10 peak device memory {peak} GB")
+    return rows, launches
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms while the block runs (the
+    multifrontal solve's ``index_add_`` sums in a fixed order then), the
+    previous setting restored after."""
+    import torch
+
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+def device_us(e) -> float:
+    """Device microseconds of a ``key_averages()`` row."""
+    return e.self_device_time_total
+
+
+def checkpoint_phase(dev, card: str, seed: int, kept: dict, well_csr,
+                     cheb_rows: list, dense_grid: int = 64) -> list:
+    """Phase 11: checkpoints (``utils.serialize``) and profiling
+    (``utils.profiling``) at full size, every file in a temporary
+    directory removed at the end.  ``kept`` holds phase 7's f32 Cholesky
+    factors and phase 8's subspace on the host; ``well_csr()`` rebuilds
+    phase 6's permuted operator from its random state; ``cheb_rows`` are
+    phase 10's rows: one filter pass of the first is traced and checked,
+    one of the last is traced for its device time by kernel.  Returns the
+    rows of the ``checkpoints`` JSON line; any failed check raises."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+
+    import sparse_linear_tpu_torch as st
+    from sparse_linear_tpu_torch.eig import chebyshev
+    from sparse_linear_tpu_torch.eig.feast import INFO_OK, eigsh
+    from sparse_linear_tpu_torch.eig.pipeline import (
+        _structured_op,
+        clear_pipeline_cache,
+    )
+    from sparse_linear_tpu_torch.kernels.spmv_well import well_spmv
+    from sparse_linear_tpu_torch.solve import api
+    from sparse_linear_tpu_torch.solve import multifrontal as mf
+    from sparse_linear_tpu_torch.utils import profiling, serialize
+    from sparse_linear_tpu_torch.utils.grids import poisson_2d
+
+    f32, f64 = torch.float32, torch.float64
+    kgen = torch.Generator(device=dev).manual_seed(seed + 7)
+    rows = []
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    analyze_s = []
+    kept_analyze = mf.analyze
+
+    def timed_analyze(*args, **kwargs):
+        out, s = timed(lambda: kept_analyze(*args, **kwargs))
+        analyze_s.append(s)
+        return out
+
+    def record(name, path, save_s, load_s, **more):
+        row = {"name": name, "bytes": os.path.getsize(path),
+               "save_s": save_s, "load_s": load_s, **more}
+        rows.append(row)
+        extra = ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                          else f"{k} {v}" for k, v in more.items())
+        print(f"phase 11 [{card}] {name}: {row['bytes']} bytes, save "
+              f"{save_s:.3f} s, load {load_s:.3f} s; {extra}", flush=True)
+
+    try:
+        # ---- factors: phase 7's f32 Cholesky of the 2D operator
+        chol = kept.pop("cholesky")
+        g = chol["grid"]
+        f = chol["factors"].to(dev)
+        del chol
+        a = poisson_2d(g, dtype=f32, device=dev)
+        b = torch.randn(g * g, dtype=f32, device=dev, generator=kgen)
+        path = os.path.join(tmp, "cholesky.npz")
+        _, save_s = timed(lambda: serialize.save_factors(path, f))
+        mf.analyze = timed_analyze
+        try:
+            loaded, load_s = timed(lambda: serialize.load_factors(path,
+                                                                  mat=a))
+        finally:
+            mf.analyze = kept_analyze
+        same_blocks = all(torch.equal(loaded.blocks[i][name], t)
+                          for i, blk in f.blocks.items()
+                          for name, t in blk.items())
+        plain_same = torch.equal(api.solve(f, b), api.solve(f, b))
+        with deterministic():
+            same = torch.equal(api.solve(loaded, b), api.solve(f, b))
+        record(f"multifrontal cholesky f32 {g}^2", path, save_s, load_s,
+               analyze_s=analyze_s[-1], blocks_bitwise=same_blocks,
+               solve_bitwise=same, repeat_bitwise_default=plain_same)
+        require(loaded.symbolic.schedule["height"]
+                == f.symbolic.schedule["height"], "re-derived schedule")
+        require(same_blocks, "loaded factor blocks differ")
+        require(same, "solve on the loaded factors is not bitwise the "
+                "solve on the saved ones")
+        del f, loaded, a, b
+        torch.cuda.empty_cache()
+
+        # ---- factors: the dense backend at n = dense_grid**2, f64
+        a = poisson_2d(dense_grid, dtype=f64, device=dev)
+        n = a.shape[0]
+        f = api.factor(a)
+        b = torch.randn(n, dtype=f64, device=dev, generator=kgen)
+        path = os.path.join(tmp, "dense.npz")
+        _, save_s = timed(lambda: serialize.save_factors(path, f))
+        loaded, load_s = timed(lambda: serialize.load_factors(path))
+        same = torch.equal(api.solve(loaded, b), api.solve(f, b))
+        record(f"dense lu f64 n={n}", path, save_s, load_s,
+               solve_bitwise=same,
+               pivots_equal=torch.equal(loaded.payload[1], f.payload[1]))
+        require(loaded.payload[0].device.type == "cuda", "dense on the card")
+        require(same, "dense solve on the loaded factors differs")
+        del f, loaded, a, b
+
+        # ---- WELL: phase 6's permuted 2048**2 f64 operator
+        csr = well_csr()
+        w, pack_s = timed(lambda: st.csr_to_well(csr))
+        x = torch.randn(csr.shape[1], dtype=f64, device=dev, generator=kgen)
+        path = os.path.join(tmp, "well.npz")
+        _, save_s = timed(lambda: serialize.save_well(path, w))
+        loaded, load_s = timed(lambda: serialize.load_well(path))
+        same_fields = all(torch.equal(getattr(loaded, name), getattr(w, name))
+                          for name in ("slice_ptr", "cols", "vals"))
+        same = torch.equal(well_spmv(loaded, x), well_spmv(w, x))
+        record(f"well f64 permuted {int(math.isqrt(csr.shape[0]))}^2", path,
+               save_s, load_s, csr_to_well_s=pack_s, nnz=csr.nnz,
+               fields_bitwise=same_fields, spmv_bitwise=same)
+        require(same_fields and same, "loaded WELL differs")
+        del csr, w, x, loaded
+        torch.cuda.empty_cache()
+
+        # ---- subspace: phase 8's lowest-50 window, as a warm start
+        sub = kept.pop("subspace")
+        gs = sub["grid"]
+        a = poisson_2d(gs, dtype=f64, device=dev)
+        path = os.path.join(tmp, "subspace.npz")
+        _, save_s = timed(lambda: serialize.save_subspace(path,
+                                                          sub["subspace"]))
+        loaded, load_s = timed(lambda: serialize.load_subspace(path))
+        same = torch.equal(loaded.cpu(), sub["subspace"])
+        clear_pipeline_cache()
+        res, warm_s = timed(lambda: eigsh(80, sub["interval"], a,
+                                          sub["params"], guess=loaded))
+        record(f"subspace lowest 50 of {gs}^2", path, save_s, load_s,
+               bitwise=same, info=res.info, loops=res.iterations,
+               cold_loops=sub["cold_loops"], eigsh_guess_s=warm_s)
+        require(loaded.device.type == "cuda" and same, "loaded subspace")
+        require(res.info == INFO_OK
+                and res.iterations <= sub["cold_loops"],
+                f"warm start: info {res.info}, {res.iterations} loops "
+                f"against {sub['cold_loops']} cold")
+        del a, loaded, res, sub
+        clear_pipeline_cache()
+        torch.cuda.empty_cache()
+
+        # ---- profiling: one filter pass of phase 10 (a) under the trace,
+        # then one of phase 10 (c) for where its time goes
+        def filter_pass(row):
+            """One filter pass of a phase-10 row's case: (the filter, its
+            arguments), its operator rebuilt."""
+            g = int(math.isqrt(row["n"]))
+            a = poisson_2d(g, dtype=f64, device=dev)
+            lam_ub, (emin, emax) = row["lam_ub"], row["interval"]
+            filt = chebyshev._make_filter(_structured_op(a), None,
+                                          row["degree"])
+            y = torch.randn((a.shape[0], row["m0"]), dtype=f64, device=dev,
+                            generator=kgen)
+            return filt, (y, 0.5 * (lam_ub + emax), 0.5 * (lam_ub - emax),
+                          emin)
+
+        def traced(filt, args, trace_dir):
+            """(profile, wall) of one pass under the trace, the file."""
+            def run():
+                with profiling.trace(trace_dir) as prof:
+                    with profiling.annotate("chebyshev:filter"):
+                        filt(*args)
+                    torch.cuda.synchronize()
+                return prof
+            prof, wall_s = timed(run)
+            files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+            require(len(files) == 1, f"trace files {files}")
+            return prof, wall_s, files[0]
+
+        row_a = cheb_rows[0]
+        filt, args = filter_pass(row_a)
+        filt(*args)  # warm-up
+        _, plain_s = timed(lambda: filt(*args))
+        prof, traced_s, path = traced(filt, args, os.path.join(tmp, "t1"))
+        with open(path) as fh:
+            text = fh.read()
+        named = {"span": '"chebyshev:filter"' in text,
+                 "kernel": "dia_spmm_kernel" in text}
+        device_ms = sum(device_us(e) for e in prof.key_averages()
+                        if "dia_spmm_kernel" in e.key) / 1e3
+        first_s, steady_s = profiling.op_timings(filt, *args, iters=3)
+        g = int(math.isqrt(row_a["n"]))
+        row = {"name": f"profiling: one filter pass of {g}^2, degree "
+                       f"{row_a['degree']}, m0 {row_a['m0']}",
+               "bytes": os.path.getsize(path), "plain_s": plain_s,
+               "traced_s": traced_s, "names": named,
+               "dia_spmm_device_ms": device_ms, "op_timings_first_s": first_s,
+               "op_timings_steady_s": steady_s}
+        rows.append(row)
+        print(f"phase 11 [{card}] {row['name']}: wall {plain_s:.4f} s, "
+              f"under the profiler {traced_s:.4f} s; trace "
+              f"{row['bytes']} bytes names the span {named['span']} and "
+              f"dia_spmm_kernel {named['kernel']}; dia_spmm_kernel device "
+              f"time {device_ms:.3f} ms; op_timings first {first_s:.4f} s, "
+              f"steady {steady_s:.4f} s", flush=True)
+        require(named["span"] and named["kernel"],
+                f"the trace does not name {named}")
+        del filt, args, prof
+
+        row_c = cheb_rows[-1]
+        filt, args = filter_pass(row_c)
+        _, plain_s = timed(lambda: filt(*args))
+        prof, traced_s, _ = traced(filt, args, os.path.join(tmp, "t2"))
+        # the span itself shows as a device range too: kernels only
+        kernels = sorted(((device_us(e) / 1e3, e.count, e.key)
+                          for e in prof.key_averages()
+                          if str(getattr(e, "device_type", "")).endswith(
+                              "CUDA") and e.key != "chebyshev:filter"),
+                         reverse=True)
+        busy_ms = sum(k[0] for k in kernels)
+        g = int(math.isqrt(row_c["n"]))
+        row = {"name": f"profiling: one filter pass of {g}^2, degree "
+                       f"{row_c['degree']}, m0 {row_c['m0']}",
+               "plain_s": plain_s, "traced_s": traced_s,
+               "device_busy_ms": busy_ms,
+               "kernels": [{"ms": ms, "count": c, "name": k[:120]}
+                           for ms, c, k in kernels[:6]]}
+        rows.append(row)
+        print(f"phase 11 [{card}] {row['name']}: wall {plain_s:.4f} s, "
+              f"under the profiler {traced_s:.4f} s; kernels "
+              f"{busy_ms:.1f} ms ({busy_ms / 1e3 / plain_s:.1%} of the "
+              f"wall without the profiler)", flush=True)
+        for ms, c, k in kernels[:6]:
+            print(f"phase 11 [{card}]   {ms:9.3f} ms in {c:5d} launches: "
+                  f"{k[:120]}", flush=True)
+        del filt, args, prof
+        torch.cuda.empty_cache()
+    finally:
+        mf.analyze = kept_analyze
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 11 checkpoints and profiling: "
+          f"{time.perf_counter() - t_phase:.3f} s wall", flush=True)
     return rows
 
 
@@ -2179,6 +2709,8 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats(dev)
     well_spmv.launches = 0
     well_spmm.launches = 0
+    # phase 11 rebuilds this phase's operator from the same draws
+    wgen_state = wgen.get_state()
     t_main = time.perf_counter()
     rows, cols, vals = poisson_triples(g, wgen)
     perm = torch.randperm(n, device=dev, generator=wgen).to(torch.int32)
@@ -2279,16 +2811,34 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------------------------------------- 7. direct solver, full size
-    direct = direct_solver_phase(dev, card, args.seed)
+    # artifacts phases 7 and 8 keep on the host for phase 11's checkpoints
+    kept = {}
+    direct = direct_solver_phase(dev, card, args.seed, keep=kept)
 
     # ------------------------------------------------- 8. FEAST, full size
-    feast = feast_phase(dev, card, args.seed)
+    feast = feast_phase(dev, card, args.seed, keep=kept)
     launches["dia_spmm"] = dia_spmm_kernel.launches
 
     # --------------------------------------- 9. complex Hermitian, full size
     complex_rows, complex_launches, _ = complex_phase(
         dev, card, args.seed, b_phase4, cg_its, well_its)
     launches.update(complex_launches)
+
+    # ------------------------------------------ 10. Chebyshev, full size
+    cheb_rows, cheb_launches = chebyshev_phase(dev, card, args.seed,
+                                               parity_abs)
+
+    # ----------------------------------- 11. checkpoints and profiling
+    def phase6_operator():
+        """Phase 6's permuted operator, from phase 6's random state."""
+        g6 = torch.Generator(device=dev)
+        g6.set_state(wgen_state)
+        rows, cols, vals = poisson_triples(g, g6)
+        perm = torch.randperm(n, device=dev, generator=g6).to(torch.int32)
+        return st.from_triples((n, n), perm[rows], perm[cols], vals).tocsr()
+
+    ckpt_rows = checkpoint_phase(dev, card, args.seed, kept, phase6_operator,
+                                 cheb_rows)
 
     def entry_of(name, dtype, replaces, launches_of, err, shape, also=(),
                  label=None):
@@ -2317,6 +2867,7 @@ def main() -> None:
         (f"{PALLAS_WELL}:385", f"{PALLAS_WELL64}:284"))
     spmm_entry["readings"] = readings
     spmm_entry["more_m"] = more_m
+    spmm_entry["launches_phase10"] = cheb_launches["well_spmm"]
 
     spmm_dia_entry = entry_of(
         "dia_spmm", f64, f"{XLA_SPMV}:45", "dia_spmm",
@@ -2327,7 +2878,10 @@ def main() -> None:
         "dia_spmm / dia_spmm_planes are not pallas_call sites",
         (f"{XLA_SPMV}:68",))
     spmm_dia_entry["readings"] = dia_spmm_readings
+    spmm_dia_entry["launches_phase10"] = cheb_launches["dia_spmm"]
 
+    print(json.dumps({"chebyshev": cheb_rows, "card": card}))
+    print(json.dumps({"checkpoints": ckpt_rows, "card": card}))
     print(json.dumps({"feast": feast + complex_rows, "card": card}))
     print(json.dumps({"direct": direct, "card": card}))
     print(json.dumps({"kernels": [

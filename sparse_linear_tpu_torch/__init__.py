@@ -20,7 +20,9 @@ staged direct solver, FEAST and the JAX package's op surface:
     complex64 and complex128; the chain real only), built with nvcc at
     first use.
   * eig/     — the FEAST interval eigensolver (``eig.feast``), with
-    counting and slicing, for real symmetric and complex Hermitian pencils.
+    counting and slicing, for real symmetric and complex Hermitian pencils,
+    and the factorization-free Chebyshev-filtered subspace iteration for
+    the lowest pairs of a real symmetric operator (``eig.chebyshev``).
   * solve/   — conjugate gradients, and the multifrontal direct solver:
     fill-reducing orderings (natural, RCM, AMD, nested dissection),
     symbolic analysis, numeric LU / Cholesky factorization on the card
@@ -29,7 +31,12 @@ staged direct solver, FEAST and the JAX package's op surface:
     backend beside it (``solve.api``, ``solve.multifrontal``, imported by
     path as in the JAX package).
   * utils/   — 1D/2D/3D Poisson operators; the host library (symbolic
-    analysis, AMD, ND) built with g++ at first use from ``csrc/host``.
+    analysis, AMD, ND) built with g++ at first use from ``csrc/host``;
+    checkpoints of factors, FEAST subspaces and WELL packings in the JAX
+    package's ``.npz`` files (``utils.serialize``); ``torch.profiler`` /
+    NVTX tracing hooks (``utils.profiling``).  ``eig.chebyshev``,
+    ``utils.serialize`` and ``utils.profiling`` are imported by path, as in
+    the JAX package.
   * interop/ — scipy.sparse / raw-array interchange, and carrying matrices
     and direct-solver artifacts across from the JAX package as numpy
     arrays.

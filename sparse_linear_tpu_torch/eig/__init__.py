@@ -1,2 +1,3 @@
-"""Interval eigensolvers: FEAST (``eig.feast``) and its cached contour
-pipeline (``eig.pipeline``), imported by path as in the JAX package."""
+"""Eigensolvers: FEAST (``eig.feast``) and its cached contour pipeline
+(``eig.pipeline``), and the Chebyshev-filtered subspace iteration
+(``eig.chebyshev``), imported by path as in the JAX package."""
