@@ -149,8 +149,33 @@ NVIDIA GPU:
    case under ``profiling.trace`` in ``profiling.annotate``, the trace
    file naming the span and ``dia_spmm_kernel``, its wall with and without
    the profiler and ``op_timings``.  File bytes, save and load seconds.
+12. Multi-device paths (``multidevice_phase``, ``dist/``), from its own
+   random stream, on ``card_mesh(4)`` (four shards on one card, or one a
+   card on four; the layout is printed), the launch counts of kernel A,
+   its multi-RHS form and kernel C set to 0 before (a) and read after (f),
+   the launches made to hold or time a kernel against its reference taken
+   back out: (a) the row-sharded 2048**2 DIA in f32 and f64, halo and
+   all-gather, against the unsharded kernel A (bitwise expected; max rel
+   err <= 1e-5 / 1e-12), each timed in turns with it (median of 24, L2
+   flushed), with the x elements a shard receives; (b) CG in f64 to 1e-10
+   on phase 4's b with sharded vectors and psum'd dots, true residual <=
+   1e-9, iterations and ms an iteration beside phase 4's; (c) the
+   stencil-order 2048**2 operator through ``shard_well_rows`` (a window
+   plan; elements shipped against the all-gather's) and phase 6's
+   permuted one (all-gather), each within 1e-12 of the unsharded kernel C
+   and timed beside it, then WELL CG on the permuted one to 1e-10 on
+   phase 6's b; (d) ``shard_ell_rows`` / ``shard_bsr_rows`` at 1024**2
+   against the unsharded ELL / BSR products (1e-12); (e) phase 7's 1024**2
+   f32 Cholesky with its fronts over the shards, the second call timed
+   beside an unsharded one and phase 7's, blocks within 1e-5 of phase 7's,
+   the refined solve <= 1e-10, then f64, direct residual <= 1e-10; (f)
+   contour-sharded FEAST on phase 8's lowest-50 windows of 192**2 and
+   1,048,576 dof (cold and warm; INFO_OK, epsout and the analytic spectrum
+   <= 1e-10, phase 8's loops, phase 8's eigenvalues within 1e-12 on the
+   interval's scale, peak < 75 GB); (g) ``entry.dryrun_multichip(4)``.
 
-Prints one JSON line of the Chebyshev runs of phase 10 (``chebyshev``),
+Prints one JSON line of phase 12 (``multidevice``), one of the Chebyshev
+runs of phase 10 (``chebyshev``),
 one of phase 11 (``checkpoints``), one JSON line of the FEAST runs of
 phases 8 and 9 (``feast``: wall cold / warm,
 loops, epsout, errors, mode, split, peak GB), one JSON line of the direct
@@ -162,7 +187,9 @@ no library call computes the function, ``launches`` from the main paths,
 ``max_abs_err``; the four complex128 instantiations as ``dia_spmv_c128``,
 ``dia_spmm_c128``, ``well_spmv_c128`` and ``well_spmm_c128``, launches from
 phase 9; ``launches_phase10`` beside the f64 ``dia_spmm`` and
-``well_spmm`` entries' own), then as the last line
+``well_spmm`` entries' own; ``launches_phase12`` beside the ``dia_spmv``
+(f32), f64 ``well_spmv`` and f64 ``dia_spmm`` entries'), then as the last
+line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
 is then non-zero and the last line is not printed.  Without a CUDA device,
 or without the package beside this script, it fails before any result.
@@ -1230,7 +1257,9 @@ def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64),
     Returns the rows of the ``feast`` JSON line; any failed check raises.
     With ``keep`` (a dict) the subspace of the 1,048,576-dof lowest-50
     window is copied to the host for phase 11 with its grid, window,
-    parameters and the loops of its cold run (``keep["subspace"]``)."""
+    parameters and the loops of its cold run (``keep["subspace"]``), and the
+    eigenvalues and loops of the lowest-50 windows by grid
+    (``keep["feast"]``, for phase 12)."""
     import numpy as np
     import torch
 
@@ -1267,6 +1296,9 @@ def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64),
     p = FeastParams(tol=1e-10, dims=(g, g), backend="multifrontal")
     res = solve(f"lowest 50 of {g}^2", a, (0.0, emax), lam[:50], p, warm=3,
                 rel=True)
+    if keep is not None:
+        keep.setdefault("feast", {})[g] = (np.sort(np.asarray(res.values)),
+                                           res.iterations)
     # each other contour mode forced on the same window: the same numbers,
     # and its time beside the planned mode's (streaming under a 1-byte
     # budget, as the tests force it)
@@ -1354,6 +1386,8 @@ def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64),
     res = solve(f"lowest 50 of {gb}^2", a_b, (0.0, emax_b), lam_b[:50], pb,
                 warm=1)
     if keep is not None:
+        keep.setdefault("feast", {})[gb] = (np.sort(np.asarray(res.values)),
+                                            res.iterations)
         keep["subspace"] = {"grid": gb, "subspace": res.subspace.cpu(),
                             "interval": (0.0, emax_b), "params": pb,
                             "cold_loops": len(rows[-1]["split"])}
@@ -1855,6 +1889,403 @@ def checkpoint_phase(dev, card: str, seed: int, kept: dict, well_csr,
     return rows
 
 
+def multidevice_phase(dev, card: str, seed: int, refs: dict,
+                      parity_abs: dict, grids=(2048, 1024, 192),
+                      n_shards: int = 4) -> dict:
+    """Phase 12: the multi-device paths (``dist/``) at full width on a
+    ``card_mesh(n_shards)``.  ``refs`` holds what the earlier phases left:
+    ``b4`` and ``b6`` (phases 4 and 6's right-hand sides, on the host),
+    ``cg_its``/``cg_ms`` and ``well_its``/``well_ms`` (their CG iterations
+    and ms an iteration), ``well_csr`` (rebuilds phase 6's operator),
+    ``cholesky`` (phase 7's f32 Cholesky factors on the host) and
+    ``factor_s`` (their second factor's wall), ``feast`` (phase 8's
+    eigenvalues and loops by window).  ``grids``: the SpMV / CG grid, the
+    ELL / BSR grid and the small FEAST grid; the 1M-dof FEAST runs on
+    phase 7's grid.  Every sharded product of kernels A and C is held
+    against the plain version on the same x (max abs errors into
+    ``parity_abs``) and against the unsharded kernel.  Returns the readings
+    of the ``multidevice`` JSON line and the launch counts; any failed
+    check raises."""
+    import numpy as np
+    import torch
+
+    import sparse_linear_tpu_torch as st
+    from sparse_linear_tpu_torch.dist import ShardedVector, card_mesh
+    from sparse_linear_tpu_torch.dist import spmv as ds
+    from sparse_linear_tpu_torch.eig import pipeline
+    from sparse_linear_tpu_torch.eig.feast import INFO_OK, FeastParams, eigsh
+    from sparse_linear_tpu_torch.entry import dryrun_multichip
+    from sparse_linear_tpu_torch.formats.structured import (
+        csr_to_bsr,
+        csr_to_ell,
+    )
+    from sparse_linear_tpu_torch.kernels.spmv import (
+        bsr_spmv,
+        dia_spmv,
+        ell_spmv,
+    )
+    from sparse_linear_tpu_torch.kernels.spmv_dia import (
+        dia_spmm_kernel,
+        dia_spmv_kernel,
+    )
+    from sparse_linear_tpu_torch.kernels.spmv_well import (
+        well_spmv,
+        well_spmv_plain,
+    )
+    from sparse_linear_tpu_torch.solve import api
+    from sparse_linear_tpu_torch.solve import multifrontal as mf
+    from sparse_linear_tpu_torch.solve.cg import cg
+    from sparse_linear_tpu_torch.utils.grids import poisson_2d
+
+    f32, f64 = torch.float32, torch.float64
+    tol = {f32: 1e-5, f64: 1e-12}
+    # its own stream: the earlier phases keep their draws
+    mgen = torch.Generator(device=dev).manual_seed(seed + 6)
+    t_phase = time.perf_counter()
+    mesh = card_mesh(n_shards, ("rows",))
+    print(f"phase 12 mesh: {mesh.layout()}", flush=True)
+    require(all(d.type == "cuda" for d in mesh.devices.flat),
+            f"mesh {mesh.layout()}")
+    out = {"layout": mesh.layout(), "shards": n_shards}
+    kernels = (dia_spmv_kernel, dia_spmm_kernel, well_spmv)
+    for k in kernels:
+        k.launches = 0
+
+    @contextlib.contextmanager
+    def uncounted():
+        """Launches made here to hold or time a kernel against its
+        reference are taken back out of the counts."""
+        saved = [k.launches for k in kernels]
+        try:
+            yield
+        finally:
+            for k, s in zip(kernels, saved):
+                k.launches = s
+
+    flush_buf = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    cards = sorted({d.index for d in mesh.devices.flat})
+    out["timing"] = ("CUDA events" if len(cards) == 1 else
+                     "host clock, every card synchronised")
+
+    def samples_ms(f, reps=12):
+        """ms of each call: CUDA events on one card; on several, the host
+        clock between synchronisations of every card (events on one card
+        would not wait for the others' launches)."""
+        for _ in range(3):
+            f()
+        if len(cards) > 1:
+            out = []
+            for _ in range(reps):
+                flush_buf.zero_()
+                for c in cards:
+                    torch.cuda.synchronize(c)
+                t0 = time.perf_counter()
+                f()
+                for c in cards:
+                    torch.cuda.synchronize(c)
+                out.append((time.perf_counter() - t0) * 1e3)
+            return out
+        events = []
+        for _ in range(reps):
+            flush_buf.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            f()
+            e.record()
+            events.append((s, e))
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in events]
+
+    def in_turns(first, second):
+        """first, second, second, first: the median of each over its 24
+        calls (CUDA events, L2 flushed before each)."""
+        a = samples_ms(first)
+        b = samples_ms(second) + samples_ms(second)
+        a += samples_ms(first)
+        return statistics.median(a), statistics.median(b)
+
+    def rnd(n, dtype):
+        return torch.randn(n, dtype=dtype, device=dev, generator=mgen)
+
+    # ---- (a) sharded kernel A, halo and all-gather, against the plain
+    # product and the unsharded kernel A on the same x
+    g = grids[0]
+    n = g * g
+    out["spmv"] = []
+    for dtype in (f32, f64):
+        a = poisson_2d(g, dtype=dtype, fmt="dia", device=dev)
+        sh, shard_s = timed(lambda: ds.shard_dia_rows(a, mesh))
+        x = rnd(n, dtype)
+        xs = ShardedVector.from_tensor(x, mesh)
+        for ex in ("halo", "allgather"):
+            y = ds.dia_spmv_sharded(sh, xs, mesh, exchange=ex)
+            plain_abs, plain_rel = max_err(y.full(), dia_spmv(a, x))
+            parity_abs[f"phase 12 dia_spmv_sharded {ex} {dtype}"] = plain_abs
+            with uncounted():
+                ref = dia_spmv_kernel(a, x)
+                bitwise = torch.equal(y.full(), ref)
+                _, rel = max_err(y.full(), ref)
+                one_ms, ms = in_turns(
+                    lambda: dia_spmv_kernel(a, x),
+                    lambda: ds.dia_spmv_sharded(sh, xs, mesh, exchange=ex))
+            recv = 2 * sh.halo if ex == "halo" else (n_shards - 1) * (
+                n // n_shards)
+            row = {"name": f"dia_spmv_sharded {ex} poisson_2d({g})",
+                   "dtype": str(dtype), "ms": ms, "unsharded_ms": one_ms,
+                   "received_per_shard": recv, "bitwise": bitwise,
+                   "max_rel_err": rel, "plain_max_abs_err": plain_abs,
+                   "plain_max_rel_err": plain_rel, "shard_s": shard_s}
+            out["spmv"].append(row)
+            print(f"phase 12 [{card}] {row['name']} {dtype}: {ms:.4f} ms "
+                  f"against unsharded kernel A {one_ms:.4f} ms (median of "
+                  f"24, L2 flushed, {out['timing']}); a shard receives "
+                  f"{recv} elements of x; "
+                  f"against the plain product max rel err {plain_rel:.3e} "
+                  f"(max abs {plain_abs:.3e}), against kernel A bitwise "
+                  f"{str(bitwise).lower()}, max rel err {rel:.3e} "
+                  f"(tol {tol[dtype]:.0e})", flush=True)
+            require(plain_rel <= tol[dtype],
+                    f"sharded kernel A {ex} {dtype} against plain: "
+                    f"{plain_rel}")
+            require(rel <= tol[dtype], f"sharded kernel A {ex} {dtype}: {rel}")
+            require(all(p.device.type == "cuda" for p in y.pieces),
+                    "sharded y on the card")
+        del a, sh, x, xs, y, ref
+
+    # ---- (b) sharded CG in f64 on phase 4's right-hand side
+    a = poisson_2d(g, dtype=f64, fmt="dia", device=dev)
+    csr = poisson_2d(g, dtype=f64, device=dev)
+    sh = ds.shard_dia_rows(a, mesh)
+    b = ShardedVector.from_tensor(refs["b4"].to(dev), mesh)
+    res, cg_s = timed(lambda: cg(
+        lambda v: ds.dia_spmv_sharded(sh, v, mesh), b, tol=1e-10,
+        maxiter=40_000))
+    bf = b.full()
+    true_res = float(torch.linalg.vector_norm(bf - st.spmv(csr, res.x.full()))
+                     / torch.linalg.vector_norm(bf))
+    cg_ms = cg_s / max(res.iterations, 1) * 1e3
+    out["cg"] = {"iterations": res.iterations, "phase4_iterations":
+                 refs["cg_its"], "s": cg_s, "ms_per_iteration": cg_ms,
+                 "phase4_ms_per_iteration": refs["cg_ms"],
+                 "true_residual": true_res}
+    print(f"phase 12 [{card}] sharded cg f64 {g}^2 (halo, psum'd dots): "
+          f"{res.iterations} iterations (phase 4: {refs['cg_its']}), true "
+          f"residual (CSR spmv) {true_res:.3e} (tol 1e-9), {cg_s:.3f} s, "
+          f"{cg_ms:.4f} ms/iteration (phase 4: {refs['cg_ms']:.4f})",
+          flush=True)
+    require(res.converged and true_res <= 1e-9,
+            f"sharded cg: converged {res.converged}, residual {true_res}")
+    require(all(p.device.type == "cuda" for p in res.x.pieces),
+            "sharded cg x on the card")
+    del a, sh, b, bf, res
+
+    # ---- (c) sharded kernel C: the stencil order (a window plan) and
+    # phase 6's permuted operator (all-gather), then WELL CG on the latter
+    out["well"] = []
+    L = n // n_shards
+    permuted = refs["well_csr"]()
+    for name, mat, want_plan in (("stencil order", csr, True),
+                                 ("permuted (phase 6)", permuted, False)):
+        sw, shard_s = timed(lambda: ds.shard_well_rows(mat, mesh))
+        require((sw.xplan is not None) == want_plan,
+                f"{name}: xplan {sw.xplan}")
+        shipped = (ds.window_exchange_elements(sw.xplan) if want_plan
+                   else (n_shards - 1) * L)
+        x = rnd(n, f64)
+        xs = ShardedVector.from_tensor(x, mesh)
+        y = ds.spmv_sharded(sw, xs, mesh)
+        w = st.csr_to_well(mat)
+        plain_abs, plain_rel = max_err(y.full(), well_spmv_plain(w, x))
+        parity_abs[f"phase 12 sharded well_spmv {name} {f64}"] = plain_abs
+        with uncounted():
+            ref = well_spmv(w, x)
+            _, rel = max_err(y.full(), ref)
+            one_ms, ms = in_turns(lambda: well_spmv(w, x),
+                                  lambda: ds.spmv_sharded(sw, xs, mesh))
+        row = {"name": f"sharded well_spmv {name} {g}^2 f64", "ms": ms,
+               "unsharded_ms": one_ms, "xplan": sw.xplan,
+               "shipped_per_shard": shipped,
+               "allgather_per_shard": (n_shards - 1) * L,
+               "max_rel_err": rel, "plain_max_abs_err": plain_abs,
+               "plain_max_rel_err": plain_rel, "shard_s": shard_s,
+               "c_max": sw.c_max}
+        out["well"].append(row)
+        print(f"phase 12 [{card}] {row['name']}: {ms:.4f} ms against "
+              f"unsharded kernel C {one_ms:.4f} ms; plan {sw.xplan}, "
+              f"shipped {shipped} elements a shard (all-gather "
+              f"{(n_shards - 1) * L}); max rel err against the plain "
+              f"product {plain_rel:.3e} (max abs {plain_abs:.3e}), against "
+              f"kernel C {rel:.3e} (tol 1e-12); packed in {shard_s:.3f} s",
+              flush=True)
+        require(plain_rel <= 1e-12,
+                f"sharded kernel C {name} against plain: {plain_rel}")
+        require(rel <= 1e-12, f"sharded kernel C {name}: {rel}")
+        del w, ref, x, xs, y
+    b = ShardedVector.from_tensor(refs["b6"].to(dev), mesh)
+    res, cg_s = timed(lambda: cg(lambda v: ds.spmv_sharded(sw, v, mesh), b,
+                                 tol=1e-10, maxiter=40_000))
+    bf = b.full()
+    true_res = float(torch.linalg.vector_norm(
+        bf - st.spmv(permuted, res.x.full())) / torch.linalg.vector_norm(bf))
+    cg_ms = cg_s / max(res.iterations, 1) * 1e3
+    out["well_cg"] = {"iterations": res.iterations, "phase6_iterations":
+                      refs["well_its"], "s": cg_s, "ms_per_iteration": cg_ms,
+                      "phase6_ms_per_iteration": refs["well_ms"],
+                      "true_residual": true_res}
+    print(f"phase 12 [{card}] sharded WELL cg f64 permuted {g}^2 "
+          f"(all-gather): {res.iterations} iterations (phase 6: "
+          f"{refs['well_its']}), true residual {true_res:.3e} (tol 1e-9), "
+          f"{cg_s:.3f} s, {cg_ms:.4f} ms/iteration (phase 6: "
+          f"{refs['well_ms']:.4f})", flush=True)
+    require(res.converged and true_res <= 1e-9,
+            f"sharded WELL cg: converged {res.converged}, residual {true_res}")
+    del sw, b, bf, res, csr, permuted
+    torch.cuda.empty_cache()
+
+    # ---- (d) ELL and BSR shards (plain PyTorch products)
+    g1 = grids[1]
+    c1 = poisson_2d(g1, dtype=f64, device=dev)
+    x1 = rnd(g1 * g1, f64)
+    out["ell_bsr"] = []
+    for name, shard, plain in (
+            ("ell", lambda: ds.shard_ell_rows(c1, mesh),
+             lambda: ell_spmv(csr_to_ell(c1), x1)),
+            ("bsr", lambda: ds.shard_bsr_rows(c1, mesh),
+             lambda: bsr_spmv(csr_to_bsr(c1, (8, 128)), x1))):
+        s, shard_s = timed(shard)
+        _, rel = max_err(ds.spmv_sharded(s, x1, mesh).full(), plain())
+        out["ell_bsr"].append({"name": name, "xplan": s.xplan,
+                               "max_rel_err": rel, "shard_s": shard_s})
+        print(f"phase 12 [{card}] sharded {name} poisson_2d({g1}) f64: plan "
+              f"{s.xplan}, max rel err against the unsharded {name} "
+              f"{rel:.3e} (tol 1e-12), packed on the host in {shard_s:.3f} s",
+              flush=True)
+        require(rel <= 1e-12, f"sharded {name}: {rel}")
+        del s
+    del c1, x1
+
+    # ---- (e) the front-sharded direct solver: phase 7's 1024**2 Cholesky
+    chol = refs["cholesky"]
+    g7, host = chol["grid"], chol["factors"]
+    sym = host.symbolic
+    fmesh = card_mesh(n_shards, ("fronts",))
+    a32 = poisson_2d(g7, dtype=f32, device=dev)
+    a64 = poisson_2d(g7, dtype=f64, device=dev)
+    opts = dict(backend="multifrontal", kind="cholesky")
+    parts = sum(p is not None for p in mf._mesh_parts(
+        sym, mf._device_maps(sym, dev), fmesh.shards("fronts")).values())
+    timed(lambda: api.factor(a32, sym, mesh=fmesh, batch_axis="fronts",
+                             **opts))
+    fs, fs_s = timed(lambda: api.factor(a32, sym, mesh=fmesh,
+                                        batch_axis="fronts", **opts))
+    timed(lambda: api.factor(a32, sym, **opts))
+    f1, f1_s = timed(lambda: api.factor(a32, sym, **opts))
+    del f1
+    block_rel = max(
+        max_err(fs.blocks[k][name].cpu(), t)[1]
+        for k, blk in host.blocks.items() if k >= 0
+        for name, t in blk.items() if name != "perm")
+    b64 = rnd(g7 * g7, f64)
+    (x, info), _ = timed(lambda: api.solve_refined(fs, a64, b64, tol=1e-10,
+                                                    max_iter=4))
+    res32 = float(torch.linalg.vector_norm(st.spmv(a64, x) - b64)
+                  / torch.linalg.vector_norm(b64))
+    f64s, f64_s = timed(lambda: api.factor(a64, sym, mesh=fmesh,
+                                           batch_axis="fronts", **opts))
+    x = api.solve(f64s, b64)
+    res64 = float(torch.linalg.vector_norm(st.spmv(a64, x) - b64)
+                  / torch.linalg.vector_norm(b64))
+    nbuckets = len(sym.schedule["flat"])
+    out["multifrontal"] = {
+        "grid": g7, "split_buckets": parts, "buckets": nbuckets,
+        "factor_f32_s": fs_s, "unsharded_factor_f32_s": f1_s,
+        "phase7_factor_f32_s": refs["factor_s"], "blocks_max_rel": block_rel,
+        "refined_residual": res32, "refine_steps": info.refinement_steps,
+        "factor_f64_s": f64_s, "f64_residual": res64}
+    print(f"phase 12 [{card}] front-sharded cholesky {g7}^2 over "
+          f"{fmesh.layout()}: {parts} of {nbuckets} buckets split; f32 "
+          f"factor {fs_s:.3f} s (second call) against unsharded {f1_s:.3f} s "
+          f"(phase 7: {refs['factor_s']:.3f} s); blocks within "
+          f"{block_rel:.3e} of phase 7's (tol 1e-5); refined solve residual "
+          f"{res32:.3e} in {info.refinement_steps} steps (tol 1e-10); f64 "
+          f"factor {f64_s:.3f} s, direct residual {res64:.3e} (tol 1e-10)",
+          flush=True)
+    require(parts >= 1, "no bucket split over the shards")
+    require(block_rel <= 1e-5, f"front-sharded blocks: {block_rel}")
+    require(info.converged and res32 <= 1e-10, f"refined residual {res32}")
+    require(res64 <= 1e-10 and not f64s.breakdown, f"f64 residual {res64}")
+    del fs, f64s, x, a32, a64, b64, host, sym
+    torch.cuda.empty_cache()
+
+    # ---- (f) contour-sharded FEAST: phase 8's lowest windows
+    pipeline.clear_pipeline_cache()
+    cp = card_mesh(n_shards, ("cp",))
+    out["feast"] = []
+    peaks = []
+    for gf in (grids[2], g7):
+        lam = spectrum_2d(gf)
+        emax = float((lam[49] + lam[50]) / 2)
+        af = poisson_2d(gf, dtype=f64, device=dev)
+        p = FeastParams(tol=1e-10, dims=(gf, gf), backend="multifrontal")
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, cold_s = timed(lambda: eigsh(80, (0.0, emax), af, p, mesh=cp))
+        run = dict(pipeline.last_run)
+        res, warm_s = timed(lambda: eigsh(80, (0.0, emax), af, p, mesh=cp))
+        peaks.append(torch.cuda.max_memory_allocated(dev) / 1e9)
+        err, err_rel = feast_errors(res, lam[:50], (0.0, emax))
+        ref_vals, ref_loops = refs["feast"][gf]
+        d8 = float(np.max(np.abs(np.sort(res.values) - ref_vals)))
+        row = {"name": f"lowest 50 of {gf}^2 over {n_shards} shards",
+               "n": gf * gf, "cold_s": cold_s, "warm_s": warm_s,
+               "loops": res.iterations, "phase8_loops": ref_loops,
+               "epsout": res.epsout, "max_err_scaled": err,
+               "vs_phase8": d8, "mode": run["mode"],
+               "shard_mode": run["shard_mode"], "why": run["why"],
+               "analyze_s": run["analyze_s"], "factor_s": run["factor_s"],
+               "solve_s": sum(lp["solve_s"] for lp in run["loops"]),
+               "rr_s": sum(lp["rr_s"] for lp in run["loops"]),
+               "peak_gb": peaks[-1]}
+        out["feast"].append(row)
+        print(f"phase 12 [{card}] contour-sharded FEAST {row['name']}: "
+              f"cold {cold_s:.3f} s, warm {warm_s:.3f} s; {res.iterations} "
+              f"loops (phase 8: {ref_loops}), epsout {res.epsout:.3e}, "
+              f"against the analytic spectrum {err:.3e} on the interval's "
+              f"scale, against phase 8 {d8:.3e} (tol 1e-12); contour "
+              f"{run['mode']} ({run['why']}); cold split: analyze "
+              f"{run['analyze_s']:.3f} s, factor {run['factor_s']:.3f} s, "
+              f"solves {row['solve_s']:.3f} s, products {row['rr_s']:.3f} s;"
+              f" peak {peaks[-1]:.3f} GB (tol 75)", flush=True)
+        require(res.info == INFO_OK and res.epsout <= 1e-10 and err <= 1e-10,
+                f"sharded FEAST {gf}^2: info {res.info}, epsout "
+                f"{res.epsout}, err {err}")
+        require(run["mode"] == "sharded" and len(run["shards"]) == n_shards,
+                f"contour {run['mode']} on {run['shards']}")
+        require(res.iterations == ref_loops,
+                f"{res.iterations} loops, phase 8 {ref_loops}")
+        require(d8 <= 1e-12, f"against phase 8: {d8}")
+        require(peaks[-1] < 75.0, f"peak {peaks[-1]} GB")
+        del af, res
+        pipeline.clear_pipeline_cache()
+        torch.cuda.empty_cache()
+
+    launches = {k.__name__: k.launches for k in kernels}
+    out["launches"] = launches
+    print(f"phase 12 launches over (a)-(f): {launches}", flush=True)
+    require(all(v >= 1 for v in launches.values()),
+            f"a kernel of the multi-device path was not launched: "
+            f"{launches}")
+
+    # ---- (g) the multi-device dry run on the card
+    dry, dry_s = timed(lambda: dryrun_multichip(n_shards))
+    out["dryrun"] = dict(dry, s=dry_s)
+    require(dry["feast_found"] == 8, f"dry run {dry}")
+    out["s"] = time.perf_counter() - t_phase
+    print(f"phase 12 multi-device: {out['s']:.3f} s wall (budget 150 s), "
+          f"peak device memory {max(peaks):.3f} GB", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2239,6 +2670,7 @@ def main() -> None:
     require(bool(torch.isfinite(res.x).all()), "cg returned non-finite x")
     require(true_res <= 1e-9, f"true residual {true_res}")
     cg_its = res.iterations
+    cg_ms4 = cg_s / max(cg_its, 1) * 1e3  # phase 12 prints it
     del b, res, csr, dia, v
 
     fn, fargs = entry(dev, grid=g, dtype=f32)
@@ -2750,6 +3182,8 @@ def main() -> None:
     require(res.converged, "cg (WELL) did not converge")
     require(bool(torch.isfinite(res.x).all()), "cg (WELL) returned non-finite")
     require(true_res <= 1e-9, f"true residual (WELL) {true_res}")
+    b_phase6 = b.cpu()  # phase 12 solves it again over a mesh
+    well_ms6 = cg_s / max(well_its, 1) * 1e3
     del b, res
 
     xp = randn(m_rhs * n, f64, wgen).reshape(m_rhs, n)
@@ -2837,8 +3271,19 @@ def main() -> None:
         perm = torch.randperm(n, device=dev, generator=g6).to(torch.int32)
         return st.from_triples((n, n), perm[rows], perm[cols], vals).tocsr()
 
+    # phase 11 takes phase 7's factors out of ``kept``; phase 12 reads them
+    cholesky = kept["cholesky"]
     ckpt_rows = checkpoint_phase(dev, card, args.seed, kept, phase6_operator,
                                  cheb_rows)
+
+    # ---------------------------------------------- 12. multi-device paths
+    multi = multidevice_phase(dev, card, args.seed, {
+        "b4": b_phase4, "cg_its": cg_its, "cg_ms": cg_ms4, "b6": b_phase6,
+        "well_its": well_its, "well_ms": well_ms6,
+        "well_csr": phase6_operator, "cholesky": cholesky,
+        "factor_s": direct[0]["factor_s"], "feast": kept["feast"]},
+        parity_abs)
+    del cholesky
 
     def entry_of(name, dtype, replaces, launches_of, err, shape, also=(),
                  label=None):
@@ -2879,22 +3324,38 @@ def main() -> None:
         (f"{XLA_SPMV}:68",))
     spmm_dia_entry["readings"] = dia_spmm_readings
     spmm_dia_entry["launches_phase10"] = cheb_launches["dia_spmm"]
+    spmm_dia_entry["launches_phase12"] = multi["launches"]["dia_spmm_kernel"]
 
+    def with12(entry, wrapper):
+        """The entry with its kernel's launches on phase 12's path."""
+        entry["launches_phase12"] = multi["launches"][wrapper]
+        return entry
+
+    print(json.dumps({"multidevice": multi, "card": card}))
     print(json.dumps({"chebyshev": cheb_rows, "card": card}))
     print(json.dumps({"checkpoints": ckpt_rows, "card": card}))
     print(json.dumps({"feast": feast + complex_rows, "card": card}))
     print(json.dumps({"direct": direct, "card": card}))
     print(json.dumps({"kernels": [
-        entry_of("dia_spmv", f32, f"{PALLAS}:133", "dia_spmv",
-                 parity_abs[f"poisson_2d(2048) {f32}"],
-                 "poisson_2d(2048) f32, L2 flushed", (f"{PALLAS}:234",)),
+        with12(entry_of("dia_spmv", f32, f"{PALLAS}:133", "dia_spmv",
+                        max(parity_abs[f"poisson_2d(2048) {f32}"],
+                            parity_abs[f"phase 12 dia_spmv_sharded halo "
+                                       f"{f32}"],
+                            parity_abs[f"phase 12 dia_spmv_sharded "
+                                       f"allgather {f32}"]),
+                        "poisson_2d(2048) f32, L2 flushed; max_abs_err also "
+                        "over phase 12's sharded slabs",
+                        (f"{PALLAS}:234",)), "dia_spmv_kernel"),
         entry_of("dia_spmv_chain", f32, f"{PALLAS}:370", "dia_spmv_chain",
                  chain_abs, "poisson_2d(2048) f32, k=50 per launch, bound "
                  "of one launch, L2 flushed"),
-        entry_of("well_spmv", f64, f"{PALLAS_WELL}:116", "well_spmv",
-                 parity_abs[f"well_spmv permuted 2048^2 {f64}"],
-                 "permuted poisson 2048^2 f64, L2 flushed",
-                 (f"{PALLAS_WELL64}:195",)),
+        with12(entry_of("well_spmv", f64, f"{PALLAS_WELL}:116", "well_spmv",
+                        max(v for k, v in parity_abs.items()
+                            if k == f"well_spmv permuted 2048^2 {f64}"
+                            or k.startswith("phase 12 sharded well_spmv")),
+                        "permuted poisson 2048^2 f64, L2 flushed; "
+                        "max_abs_err also over phase 12's sharded slabs",
+                        (f"{PALLAS_WELL64}:195",)), "well_spmv"),
         spmm_entry,
         spmm_dia_entry,
         entry_of("dia_spmv", c128, f"{XLA_SPMV}:29", "dia_spmv complex",

@@ -231,17 +231,35 @@ def _is_identity(mat) -> bool:
                 and bool((csr.data[:n] == 1).all()))
 
 
-def _check_args(where, interval, mat_a, mat_b, params, mesh=None):
+def _contour_shards(where, mesh, params, contour_axis, rows_axis):
+    """The devices of ``mesh[contour_axis]``, one a group of contour nodes
+    (None without a mesh).  As in the JAX package, the node count must
+    divide by their number.  A mesh whose ``rows_axis`` has more than one
+    shard (the JAX package then also row-shards the subspace) raises
+    ``NotImplementedError``."""
+    if mesh is None:
+        return None
+    if rows_axis in mesh.axis_names and mesh.shape[rows_axis] > 1:
+        raise NotImplementedError(
+            f"{where}: a mesh whose {rows_axis!r} axis has "
+            f"{mesh.shape[rows_axis]} shards (the row-sharded FEAST subspace) "
+            "is not ported yet (ROADMAP.md queue 1 item 11)")
+    shards = mesh.shards(contour_axis)
+    ne = params.contour_points
+    if ne % len(shards):
+        raise ValueError(
+            f"{where}: {ne} contour points are not divisible by the "
+            f"{len(shards)} shards of mesh axis {contour_axis!r}")
+    return shards
+
+
+def _check_args(where, interval, mat_a, mat_b, params):
     emin, emax = float(interval[0]), float(interval[1])
     if emax <= emin:
         raise ValueError(f"{where}: empty interval")
     n = mat_a.shape[0]
     if mat_a.shape != (n, n) or (mat_b is not None and mat_b.shape != (n, n)):
         raise ValueError(f"{where}: A and B must be square and equal-sized")
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{where}: mesh= (contour nodes sharded over devices) is not "
-            "ported yet (ROADMAP.md queue 1 item 8: multi-device)")
     if params.complex_strategy == "embedded":
         raise ValueError(
             f"{where}: complex_strategy='embedded' (the real 2n embedding) "
@@ -265,18 +283,27 @@ def _device_mats(mat_a, mat_b, device):
 
 
 def geigsh(m0, interval, mat_a, mat_b, params: FeastParams = FeastParams(),
-           guess=None, mesh=None, *, device=None) -> EigResult:
+           guess=None, mesh=None, contour_axis: str = "cp",
+           rows_axis: str = "rows", *, device=None) -> EigResult:
     """Generalized Hermitian interval eigenproblem A x = lambda B x,
     eigenvalues in ``interval`` = (emin, emax), subspace dimension m0.
 
     Reference: ``geigSH``/``geigSH_`` (Feast.hs:62-70,102-113,115-240),
     including the warm start through ``guess`` (Feast.hs:119,157-168,
     fpm[4]=1).  Runs on the matrices' device, or on ``device`` when given.
-    ``mesh`` raises ``NotImplementedError``."""
+
+    Distribution: with ``mesh`` (a ``dist.mesh.Mesh``) the contour nodes
+    are split over ``mesh.shards(contour_axis)`` in contiguous groups (the
+    JAX package shards the stacked node axis; the node count must divide
+    by the shard count): each shard factors and solves its nodes on its
+    device, and the quadrature sums are psum'd onto the matrices' device
+    (``pipeline``'s "sharded" contour).  The subspace and the Rayleigh-Ritz
+    step stay on the matrices' device.  A mesh whose ``rows_axis`` has more
+    than one shard raises ``NotImplementedError``."""
     from sparse_linear_tpu_torch.eig import pipeline
 
-    emin, emax, n = _check_args("geigsh", interval, mat_a, mat_b, params,
-                                mesh)
+    emin, emax, n = _check_args("geigsh", interval, mat_a, mat_b, params)
+    shards = _contour_shards("geigsh", mesh, params, contour_axis, rows_axis)
     if m0 < 1 or m0 > n:
         raise ValueError(f"geigsh: m0 must be in [1, {n}]")
     mat_a, mat_b = _device_mats(mat_a, mat_b, device)
@@ -284,18 +311,19 @@ def geigsh(m0, interval, mat_a, mat_b, params: FeastParams = FeastParams(),
         _check_hermitian(mat_a, "A")
         _check_hermitian(mat_b, "B")
     return pipeline.geigsh_pipeline(m0, (emin, emax), mat_a, mat_b, params,
-                                    guess=guess)
+                                    guess=guess, shards=shards)
 
 
 def eigsh(m0, interval, mat_a, params: FeastParams = FeastParams(),
-          guess=None, mesh=None, *, device=None) -> EigResult:
+          guess=None, mesh=None, contour_axis: str = "cp", *,
+          device=None) -> EigResult:
     """Standard Hermitian interval problem: B = I (reference ``eigSH``,
     Feast.hs:53-60,91-100)."""
     mat_a, _ = _device_mats(mat_a, None, device)
     b = eye(mat_a.shape[0], dtype=real_of(mat_a.dtype),
             device=mat_a.data.device)
     return geigsh(m0, interval, mat_a, b, params=params, guess=guess,
-                  mesh=mesh)
+                  mesh=mesh, contour_axis=contour_axis)
 
 
 def count_eigenvalues(interval, mat_a, mat_b=None, probes: int = 16,

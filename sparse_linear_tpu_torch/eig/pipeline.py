@@ -33,7 +33,15 @@ workaround, for real symmetric and complex Hermitian pencils alike:
    ``real_pipeline.py:452-577``).  :meth:`_Pipeline.plan` compares the
    port's own byte count with the card's free memory
    (``torch.cuda.mem_get_info``); ``SLT_FEAST_MEMORY_BUDGET`` (bytes)
-   overrides that memory, so a test can force streaming.
+   overrides that memory, so a test can force streaming.  A fourth mode,
+   "sharded" (``geigsh(mesh=)``), splits the nodes into contiguous groups,
+   one a shard of the contour axis: each shard factors and solves its
+   nodes on its device in the first of the three ways whose bytes fit
+   every card, the shards that share a card counted together against that
+   card's memory, and the quadrature sums are psum'd onto the subspace's
+   device in shard order.  The pipeline (pattern, ``analyze``, operators)
+   is shared by every mesh; a contour is cached per (nodes, mode, mesh
+   layout).
 
 5. **Rayleigh-Ritz in plain f64/c128 matmuls** (``torch.matmul``): the
    whitening Gram q^H q, qw = q W, the reduced blocks qw^H (A qw) and
@@ -101,8 +109,11 @@ def _drop(pipe) -> None:
     pipeline and the pipeline to its contours; without this, dropping the
     pipeline leaves the cycle, and the factors on the card, to Python's
     cycle collector, whenever it runs (a second 1M-dof FEAST then found
-    48 GB still held and planned its contour as if they were in use)."""
+    48 GB still held and planned its contour as if they were in use).
+    The sites on other devices (each refers back to the pipeline) go
+    too."""
     pipe.contours.clear()
+    pipe.sites.clear()
 
 
 def _fingerprint(mat) -> tuple:
@@ -215,9 +226,22 @@ class _Pipeline:
         self.symbolic = api.analyze(self.pattern, backend=backend, **opts)
         self.a_op = _structured_op(mat_a)
         self.b_op = _structured_op(mat_b)
+        self.mats = (mat_a, mat_b)
         _sync(self.device)
         self.analyze_s = time.perf_counter() - t0
         self.contours: dict = {}
+        self.sites: dict = {}
+
+    def site(self, device) -> "_Pipeline | _Site":
+        """What a shard on ``device`` factors and solves with: the
+        pipeline itself on its own device, else a copy of the pattern (and,
+        for refinement, of the operators) made there once."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        if device not in self.sites:
+            self.sites[device] = _Site(self, device)
+        return self.sites[device]
 
     # -- bytes -------------------------------------------------------------
 
@@ -237,15 +261,19 @@ class _Pipeline:
                     for b in sched["flat"])
         return item * stored, item * front
 
-    def needs(self, ne: int, m: int) -> dict:
-        """Bytes each contour mode holds at its peak for ne nodes and m
-        right-hand sides."""
+    def needs(self, ne, m: int) -> dict:
+        """Bytes each contour mode holds at its peak on one card for ne
+        nodes and m right-hand sides.  ``ne`` may be a list: the node
+        counts of the shards that share the card, which run one after
+        another, so their stored sets add up and one transient is held at
+        a time."""
+        ks = [ne] if isinstance(ne, int) else list(ne)
         fac, front = self.set_bytes()
         stack = (self.n * m * torch.empty((), dtype=self.cdtype)
                  .element_size() * _SOLVE_COPIES)
         trans = front * _FACTOR_TRANSIENT
-        return {"batched": ne * (fac + trans + stack),
-                "per-node": ne * fac + trans + stack,
+        return {"batched": sum(ks) * fac + max(ks) * (trans + stack),
+                "per-node": sum(ks) * fac + trans + stack,
                 "streaming": fac + trans + stack}
 
     def plan(self, ne: int, m: int, batching: str, held: float = 0.0):
@@ -266,6 +294,29 @@ class _Pipeline:
         return "streaming", (f"per-node {need['per-node'] / 1e9:.2f} GB "
                              f"exceed the budget of {budget / 1e9:.2f} GB")
 
+    def card_needs(self, groups, m: int) -> dict:
+        """{card: {mode: bytes}} of a sharded contour whose groups are
+        ``[(device, node count)]``."""
+        cards = dict.fromkeys(d for d, _ in groups)
+        return {c: self.needs([k for d, k in groups if d == c], m)
+                for c in cards}
+
+    def plan_sharded(self, groups, m: int, batching: str, held: dict):
+        """(per-shard mode, why) of a sharded contour, as :meth:`plan` but
+        against every card's budget at once."""
+        need = self.card_needs(groups, m)
+        if batching == "vmap":
+            return "batched", "forced by contour_batching='vmap'"
+        if batching == "loop":
+            return "per-node", "forced by contour_batching='loop'"
+        budget = {d: _budget(d, held.get(d, 0.0)) for d in need}
+        for mode in ("batched", "per-node", "streaming"):
+            if all(need[d][mode] <= budget[d] for d in need):
+                break
+        return mode, "; ".join(
+            f"{d}: {need[d][mode] / 1e9:.2f} GB of a budget of "
+            f"{budget[d] / 1e9:.2f} GB" for d in need)
+
     # -- factors -----------------------------------------------------------
 
     def factor(self, zk):
@@ -276,22 +327,43 @@ class _Pipeline:
                         data=self.values([zk])[0], shape=pat.shape)
         return api.factor(mat, self.symbolic)
 
-    def contour(self, z, sigma, m: int, batching: str) -> "_Contour":
+    def contour(self, z, sigma, m: int, batching: str,
+                shards=None) -> "_Contour":
         """The contour's factors in the planned mode, cached per (nodes,
-        mode); cached sets of other contours are dropped first when the
-        plan does not fit beside them."""
+        mode, shards); cached sets of other contours are dropped first when
+        the plan does not fit beside them.  ``shards``: the devices of a
+        mesh's contour axis, one group of contiguous nodes each."""
         zkey = hash(np.asarray(z).tobytes())
         fac = self.set_bytes()[0]
-        held = sum(c.stored_sets for c in self.contours.values()) * fac
-        mode, why = self.plan(len(z), m, batching, held)
-        key = (zkey, mode)
+        held: dict = {}
+        for c in self.contours.values():
+            for dev, k in c.stored_by_device().items():
+                held[dev] = held.get(dev, 0.0) + k * fac
+        if shards is None:
+            groups = [(self.device, np.arange(len(z)))]
+            mode, why = self.plan(len(z), m, batching,
+                                  held.get(self.device, 0.0))
+            key = (zkey, mode, None)
+            fits = self.needs(len(z), m)[mode] <= _budget(self.device)
+        else:
+            shards = [torch.device(d) for d in shards]
+            groups = list(zip(shards, np.array_split(np.arange(len(z)),
+                                                     len(shards))))
+            sizes = [(d, len(ix)) for d, ix in groups]
+            sub, why = self.plan_sharded(sizes, m, batching, held)
+            mode = "sharded"
+            why = f"{sub} on each of {len(shards)} shards: {why}"
+            key = (zkey, mode, sub, tuple(str(d) for d in shards))
+            need = self.card_needs(sizes, m)
+            fits = all(need[d][sub] <= _budget(d) for d in need)
         if key in self.contours:
             return self.contours[key]
-        if held and self.needs(len(z), m)[mode] > _budget(self.device):
+        if held and not fits:
             self.contours.clear()
         while len(self.contours) >= _FACTOR_CACHE_MAX:
             self.contours.pop(next(iter(self.contours)))
-        c = _Contour(self, np.asarray(z), np.asarray(sigma), mode, why)
+        c = _Contour(self, np.asarray(z), np.asarray(sigma), mode, why,
+                     groups, None if shards is None else sub)
         self.contours[key] = c
         return c
 
@@ -301,27 +373,71 @@ class _Pipeline:
         return rhs - zk * bs + self.a_op(s)
 
 
-class _Contour:
-    """One contour's nodes, weights and factors in one mode."""
+class _Site:
+    """A pipeline's pattern, node values and (made at first use, for
+    refinement) operators on another device than its own: where a shard of
+    a sharded contour factors and solves."""
 
-    def __init__(self, pipe: _Pipeline, z, sigma, mode: str, why: str):
+    def __init__(self, pipe: _Pipeline, device: torch.device):
+        self.pipe, self.device = pipe, device
+        self.pattern = pipe.pattern.to(device)
+        self.symbolic = pipe.symbolic
+        self._ops = None
+
+    def values(self, z):
+        return self.pipe.values(z).to(self.device)
+
+    def factor(self, zk):
+        return _Pipeline.factor(self, zk)
+
+    def residual(self, rhs, s, zk):
+        if self._ops is None:
+            self._ops = tuple(_structured_op(m.to(self.device))
+                              for m in self.pipe.mats)
+        a_op, b_op = self._ops
+        bs = s if b_op.route == "identity" else b_op(s)
+        return rhs - zk * bs + a_op(s)
+
+
+class _Contour:
+    """One contour's nodes, weights and factors in one mode: one group of
+    nodes on the pipeline's device, or under "sharded" one group a shard,
+    each in ``shard_mode``."""
+
+    def __init__(self, pipe: _Pipeline, z, sigma, mode: str, why: str,
+                 groups, shard_mode=None):
         from sparse_linear_tpu_torch.solve import api
 
         self.pipe, self.z, self.sigma = pipe, z, sigma
-        self.mode, self.why = mode, why
+        self.mode, self.why, self.shard_mode = mode, why, shard_mode
+        # [(site, node indices, mode, factors)]
+        self.groups = []
         t0 = time.perf_counter()
-        self.factors = None
-        if mode == "batched":
-            self.factors = api.factor_batched(pipe.pattern, pipe.values(z),
-                                              pipe.symbolic)
-        elif mode == "per-node":
-            self.factors = [pipe.factor(zk) for zk in z]
-        _sync(pipe.device)
+        for dev, idx in groups:
+            site = pipe.site(dev)
+            gmode = shard_mode or mode
+            factors = None
+            if gmode == "batched":
+                factors = api.factor_batched(site.pattern,
+                                             site.values(z[idx]),
+                                             pipe.symbolic)
+            elif gmode == "per-node":
+                factors = [site.factor(z[k]) for k in idx]
+            self.groups.append((site, idx, gmode, factors))
+        self._sync()
         self.factor_s = time.perf_counter() - t0
 
-    @property
-    def stored_sets(self) -> int:
-        return 0 if self.factors is None else len(self.z)
+    def _sync(self) -> None:
+        for dev in dict.fromkeys(g[0].device for g in self.groups):
+            _sync(dev)
+
+    def stored_by_device(self) -> dict:
+        """{device: factor sets held there}."""
+        out: dict = {}
+        for site, idx, gmode, factors in self.groups:
+            if factors is not None:
+                out[site.device] = out.get(site.device, 0) + len(idx)
+        return out
 
     def _accumulate(self, q, s, k, trans) -> None:
         w = np.conj(self.sigma[k]) if trans else self.sigma[k]
@@ -335,45 +451,59 @@ class _Contour:
     def apply(self, y, refine_n: int) -> torch.Tensor:
         """q = sum_k sigma_k S_k + conj(sigma_k) T_k with S_k and T_k the
         solutions of (z_k B - A) S = B y and (z_k B - A)^H T = B y; for a
-        real pencil T_k = conj(S_k) and q = 2 Re sum_k sigma_k S_k."""
-        from sparse_linear_tpu_torch.solve import api
+        real pencil T_k = conj(S_k) and q = 2 Re sum_k sigma_k S_k.  Under
+        "sharded" each shard sums its own nodes on its device (the
+        right-hand side goes to it once; it is only read there) and the
+        sums are psum'd onto y's device in shard order."""
+        from sparse_linear_tpu_torch.dist.collectives import psum
 
         pipe = self.pipe
         rhs = pipe.b_op(y).to(pipe.cdtype)
-        q = torch.zeros(y.shape, dtype=pipe.wdtype, device=y.device)
-        passes = (False,) if pipe.real else (False, True)
-        ne = len(self.z)
-        if self.mode == "batched":
+        sums = []
+        for site, idx, gmode, factors in self.groups:
+            q = torch.zeros(y.shape, dtype=pipe.wdtype, device=site.device)
+            self._group_sum(q, rhs.to(site.device), site, idx, gmode,
+                            factors, refine_n)
+            sums.append(q)
+        return sums[0] if len(sums) == 1 else psum(sums, y.device)
+
+    def _group_sum(self, q, rhs, site, idx, gmode, factors, refine_n):
+        """Add one group's quadrature terms to q, on the group's device."""
+        from sparse_linear_tpu_torch.solve import api
+
+        passes = (False,) if self.pipe.real else (False, True)
+        if gmode == "batched":
+            ne = len(idx)
             for trans in passes:
-                zz = np.conj(self.z) if trans else self.z
-                s = api.solve_batched(self.factors,
+                zz = np.conj(self.z[idx]) if trans else self.z[idx]
+                s = api.solve_batched(factors,
                                       rhs.expand((ne,) + rhs.shape), trans)
                 for _ in range(refine_n):
-                    r = torch.stack([pipe.residual(rhs, s[k], complex(zz[k]))
-                                     for k in range(ne)])
-                    s += api.solve_batched(self.factors, r, trans)
+                    r = torch.stack([site.residual(rhs, s[i], complex(zz[i]))
+                                     for i in range(ne)])
+                    s += api.solve_batched(factors, r, trans)
                     del r
-                for k in range(ne):
-                    self._accumulate(q, s[k], k, trans)
+                for i, k in enumerate(idx):
+                    self._accumulate(q, s[i], k, trans)
                 del s
-            return q
-        for k, zk in enumerate(self.z):
-            if self.mode == "per-node":
-                fac = self.factors[k]
+            return
+        for i, k in enumerate(idx):
+            zk = self.z[k]
+            if gmode == "per-node":
+                fac = factors[i]
             else:
                 t0 = time.perf_counter()
-                fac = pipe.factor(zk)
-                _sync(pipe.device)
+                fac = site.factor(zk)
+                _sync(site.device)
                 self.factor_s += time.perf_counter() - t0
             for trans in passes:
                 zt = complex(np.conj(zk) if trans else zk)
                 s = api.solve(fac, rhs, trans)
                 for _ in range(refine_n):
-                    s += api.solve(fac, pipe.residual(rhs, s, zt), trans)
+                    s += api.solve(fac, site.residual(rhs, s, zt), trans)
                 self._accumulate(q, s, k, trans)
                 del s
             del fac
-        return q
 
 
 def _get_pipeline(mat_a, mat_b, backend, dims):
@@ -449,10 +579,12 @@ def _initial_subspace(guess, n, m0, pipe, seed):
                        generator=gen)
 
 
-def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None):
+def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
+                    shards=None):
     """The FEAST solver loop over the cached pipeline (mirrors the RCI event
     sequence, Feast.hs:220-232, with the loop owned natively).  Returns an
-    ``EigResult``; fills :data:`last_run`."""
+    ``EigResult``; fills :data:`last_run`.  ``shards``: the devices of a
+    mesh's contour axis (the "sharded" contour), or None."""
     from sparse_linear_tpu_torch.eig.feast import (
         INFO_NO_EIGENVALUES, INFO_NOT_CONVERGED, INFO_OK,
         INFO_SUBSPACE_TOO_SMALL, EigResult, _contour, _reduced_geig,
@@ -465,9 +597,11 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None):
     dev = pipe.device
     z, sigma = _contour(emin, emax, params.contour_points,
                         kind=params.quadrature)
-    contour = pipe.contour(z, sigma, m0, params.contour_batching)
+    contour = pipe.contour(z, sigma, m0, params.contour_batching, shards)
     refine_n = _refine_default(params, pipe)
     run = {"mode": contour.mode, "why": contour.why,
+           "shard_mode": contour.shard_mode,
+           "shards": [str(g[0].device) for g in contour.groups],
            "analyze_s": pipe.analyze_s if fresh else 0.0,
            "factor_s": contour.factor_s, "loops": [],
            "needs_gb": {k: v / 1e9 for k, v in pipe.needs(len(z), m0).items()},

@@ -16,10 +16,10 @@ COO entries carry sentinel coordinates (row == nrows, col == ncols, value
 (:func:`ops.spgemm.spgemm`), and ``+``/``-`` the union merge
 (:func:`ops.linalg.add` / ``lin``), as in the JAX package; ``abs``,
 ``signum``, ``reduce_values`` and ``sum_values`` are the reference's
-elementwise and fold methods.  The JAX ``CSR.row`` / ``CSC.col`` methods
-are left out: ``ops.structure.to_rows`` / ``to_columns`` cut the rows or
-columns from one host copy of the pointers, and the names stay those of
-COO's index fields.
+elementwise and fold methods.  ``CSR.row`` / ``CSC.col`` cut one row or
+column as a :class:`formats.sparse_vector.SparseVector`, as the JAX
+methods do; ``ops.structure.to_rows`` / ``to_columns`` cut all of them from
+one host copy of the pointers.
 """
 
 from __future__ import annotations
@@ -266,6 +266,11 @@ class CSR(_MatrixOpsMixin):
 
         return build.reorder_major(self, to="csc")
 
+    def row(self, i: int):
+        """Row i as a sparse vector of length ncols (reference ``slice``,
+        Matrix/Sparse.hs:161-182), its buffers views of this matrix's."""
+        return _segment(self, i, self.shape[1])
+
 
 @tensor_dataclass
 class CSC(_MatrixOpsMixin):
@@ -306,6 +311,25 @@ class CSC(_MatrixOpsMixin):
         from sparse_linear_tpu_torch.ops import build
 
         return build.reorder_major(self, to="csr")
+
+    def col(self, j: int):
+        """Column j as a sparse vector of length nrows (reference
+        ``slice``, Matrix/Sparse.hs:161-182), its buffers views of this
+        matrix's."""
+        return _segment(self, j, self.shape[0])
+
+
+def _segment(mat, k: int, length: int):
+    """Segment k of a compressed matrix (one host read of its two
+    pointers) as a SparseVector of ``length``."""
+    from sparse_linear_tpu_torch.formats.sparse_vector import SparseVector
+
+    nseg = mat.indptr.shape[0] - 1
+    if not 0 <= k < nseg:
+        raise IndexError(f"segment {k} out of range for {nseg} segments")
+    lo, hi = (int(v) for v in mat.indptr[k:k + 2].tolist())
+    return SparseVector(indices=mat.indices[lo:hi], data=mat.data[lo:hi],
+                        length=length)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,15 @@ double-float ``vals_lo``) are decoded to triples with numpy, hi + lo summed
 in f64, and the port builds its own WELL (or WELL64) from their CSR.  The
 two then compute the same y.
 
+Kinds ``"sharded_dia"``, ``"sharded_ell"``, ``"sharded_bsr"`` and
+``"sharded_well"`` carry the JAX package's row-sharded packings
+(``dist/spmv.py``) onto a port ``dist.mesh.Mesh`` (``from_arrays(...,
+mesh=, axis=)``): the stacked numpy arrays, one slice a shard (``data`` of
+a sharded DIA whole), with ``col_lo`` and ``xplan`` (None without a window
+plan).  ``sharded_well`` decodes each slab's chunk planes as kind
+``"well"`` does and repacks it as the port's own WELL on its shard, one
+way; the other three cross both ways.
+
 Kinds ``"mf_symbolic"`` and ``"mf_factors"`` carry the direct solver's
 artifacts across.  A symbolic artifact travels as its ``perm`` and
 ``relax`` = (relax_small, relax_frac): the port re-derives the identical
@@ -55,6 +64,11 @@ KINDS = {
     # JAX WELL chunk planes; "well" also takes an optional "vals_im"
     "well": ("bases", "idx", "vals"),
     "well64": ("bases", "idx", "vals", "vals_lo"),
+    "sharded_dia": ("data",),
+    "sharded_ell": ("cols", "vals", "col_lo", "xplan"),
+    "sharded_bsr": ("brow", "indices", "blocks", "col_lo", "xplan"),
+    # JAX ShardedWELL planes; also takes an optional "vals_im"
+    "sharded_well": ("bases", "idx", "vals", "col_lo", "xplan"),
     "mf_symbolic": ("perm", "relax"),
     "mf_factors": ("n_flag", "kind", "batch"),
 }
@@ -121,12 +135,63 @@ def _host(t) -> np.ndarray:
     return t.detach().resolve_conj().cpu().numpy()
 
 
+def _sharded(kind, arrays, shape, offsets, mesh, axis):
+    """The port's row-sharded matrix of a JAX packing on ``mesh[axis]``."""
+    from sparse_linear_tpu_torch.dist import spmv as ds
+
+    if mesh is None:
+        raise ValueError(f"from_arrays({kind!r}): pass mesh=")
+    nr, nc = (int(s) for s in shape)
+    if kind == "sharded_dia":
+        if offsets is None:
+            raise ValueError("from_arrays('sharded_dia'): offsets are "
+                             "required")
+        dia = DIA(data=torch.as_tensor(np.array(arrays["data"])),
+                  shape=(nr, nc), offsets=tuple(int(o) for o in offsets))
+        return ds.shard_dia_rows(dia, mesh, axis)
+    devices = mesh.shards(axis)
+    col_lo, xplan = arrays["col_lo"], arrays["xplan"]
+    win = {} if xplan is None else {
+        "col_lo": np.asarray(col_lo, dtype=np.int32),
+        "xplan": tuple(int(v) for v in xplan)}
+
+    def per_shard(name, dtype=None):
+        return [torch.as_tensor(np.array(arrays[name][d]), dtype=dtype,
+                                device=dev) for d, dev in enumerate(devices)]
+
+    if kind == "sharded_ell":
+        return ds.ShardedELL(cols=per_shard("cols", index_dtype),
+                             vals=per_shard("vals"), shape=(nr, nc),
+                             axis=axis, mesh=mesh, **win)
+    if kind == "sharded_bsr":
+        blocks = per_shard("blocks")
+        return ds.ShardedBSR(
+            brow=per_shard("brow", index_dtype),
+            indices=per_shard("indices", index_dtype), blocks=blocks,
+            shape=(nr, nc), block_shape=tuple(blocks[0].shape[1:]),
+            axis=axis, mesh=mesh, **win)
+    rows_local = ds._well_rows_local(nr, len(devices))
+    ncl = nc if xplan is None else win["xplan"][5]
+    wells = []
+    for d, dev in enumerate(devices):
+        slab = {n: arrays[n][d] for n in ("bases", "idx", "vals")}
+        if arrays.get("vals_im") is not None:
+            slab["vals_im"] = arrays["vals_im"][d]
+        rows, cols, vals = _well_triples(slab, (rows_local, ncl))
+        wells.append(csr_to_well(from_triples(
+            (rows_local, ncl), rows, cols, vals, device=dev).tocsr()))
+    return ds.ShardedWELL(wells=wells, shape=(nr, nc),
+                          c_max=max(w.c_max for w in wells), axis=axis,
+                          mesh=mesh, **win)
+
+
 def from_arrays(kind: str, arrays, shape, offsets=None, *, device=None,
-                mat=None, symbolic=None):
+                mat=None, symbolic=None, mesh=None, axis: str = "rows"):
     """The port's ``kind`` format from a mapping of leaf name -> array, on
     ``device``, by default the device of a tensor leaf, else the card.
-    ``mat`` (kind ``"mf_symbolic"``) and ``symbolic`` (kind
-    ``"mf_factors"``) are described in the module docstring."""
+    ``mat`` (kind ``"mf_symbolic"``), ``symbolic`` (kind ``"mf_factors"``)
+    and ``mesh``/``axis`` (the sharded kinds, placed on the mesh's shards)
+    are described in the module docstring."""
     if kind == "mf_symbolic":
         device = default_device(device, mat.data if mat is not None
                                 else None)
@@ -149,6 +214,8 @@ def from_arrays(kind: str, arrays, shape, offsets=None, *, device=None,
                        relax_frac=float(relax_frac))
     if kind == "mf_factors":
         return _mf_factors(arrays, symbolic, device)
+    if kind.startswith("sharded_"):
+        return _sharded(kind, arrays, shape, offsets, mesh, axis)
     if kind in ("well", "well64"):
         shape = tuple(int(s) for s in shape)
         rows, cols, vals = _well_triples(arrays, shape)
@@ -188,11 +255,22 @@ def from_arrays(kind: str, arrays, shape, offsets=None, *, device=None,
 def to_arrays(mat):
     """(kind, {leaf: numpy array}, shape, offsets) of a port format or of
     a multifrontal artifact."""
+    from sparse_linear_tpu_torch.dist import spmv as ds
     from sparse_linear_tpu_torch.solve.multifrontal import (
         MFFactors,
         MFSymbolic,
     )
 
+    if isinstance(mat, ds.ShardedDIA):
+        return ("sharded_dia", {"data": _host(mat.full().data)},
+                tuple(mat.shape), mat.offsets)
+    if isinstance(mat, (ds.ShardedELL, ds.ShardedBSR)):
+        kind = "sharded_" + ("ell" if isinstance(mat, ds.ShardedELL)
+                             else "bsr")
+        arrays = {n: np.stack([_host(t) for t in getattr(mat, n)])
+                  for n in KINDS[kind][:-2]}
+        arrays.update(col_lo=mat.col_lo, xplan=mat.xplan)
+        return kind, arrays, tuple(mat.shape), None
     if isinstance(mat, MFSymbolic):
         return ("mf_symbolic", {"perm": np.asarray(mat.perm),
                                 "relax": mat.relax}, (mat.n, mat.n), None)

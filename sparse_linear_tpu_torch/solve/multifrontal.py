@@ -54,8 +54,10 @@ What differs from the JAX package, and why:
   dof in the JAX package's reduced-precision equivalent); the caller's
   setting is restored afterwards.
 * No compiled-program cache and no f64-LU fail-fast: the H100 has native
-  f64 and complex LU.  ``mesh=`` (multi-device factorization) is not
-  ported.
+  f64 and complex LU.
+* ``factor(mesh=)`` splits each bucket's fronts over a mesh of shards from
+  one process (``dist/``), where the JAX package lets XLA shard the batch
+  axis and insert the extend-add collectives.
 """
 
 from __future__ import annotations
@@ -570,19 +572,67 @@ def _bucket_factor(front, ns_class, pivot_eps: float = 0.0):
     return lu, permutation.to(torch.int32), g21, g12, schur, npert
 
 
+def _mesh_parts(symbolic: MFSymbolic, dm, devices):
+    """How a mesh of ``devices`` splits each bucket: None for a bucket whose
+    front count does not divide by the shard count (it stays whole on
+    ``devices[0]``, where the JAX package replicates it), else one part a
+    shard, (device, A-entry src, dst, [(child bucket, src, dst)], pad), for
+    a contiguous group of its fronts.  The maps are the whole bucket's
+    (``dm``, on ``devices[0]``) cut to the group's destination range and
+    rebased, in their order; built once per (symbolic, devices)."""
+    key = ("mesh",) + tuple(str(d) for d in devices)
+    if key in symbolic._dev_maps:
+        return symbolic._dev_maps[key]
+    ndev = len(devices)
+    parts = {}
+    for bidx, b in enumerate(symbolic.schedule["flat"]):
+        nb = b["sup_ids"].shape[0]
+        if nb % ndev:
+            parts[bidx] = None
+            continue
+        nbl = nb // ndev
+        fs = b["Ns"] + b["Us"]
+        span = nbl * fs * fs
+        parts[bidx] = []
+        for g, dev in enumerate(devices):
+            lo = g * span
+
+            def cut(src, dst):
+                keep = (dst >= lo) & (dst < lo + span)
+                return src[keep].to(dev), (dst[keep] - lo).to(dev)
+
+            am = dm["a"][bidx]
+            parts[bidx].append((
+                dev, *cut(am["src"], am["dst"]),
+                [(cb, *cut(src, dst)) for cb, src, dst in
+                 dm["children"][bidx]],
+                dm["pad"][bidx][g * nbl:(g + 1) * nbl].to(dev)))
+    symbolic._dev_maps[key] = parts
+    return parts
+
+
 def _factor_run(symbolic: MFSymbolic, dm, a_data, kind: str,
-                pivot_eps: float):
+                pivot_eps: float, parts=None):
     """The level/bucket loop over E value-sets ``a_data`` (E, nnz).
 
-    Blocks come out (E, nb, ...).  No host synchronisation inside: the
-    diagnostic count stays a device tensor (E,)."""
+    Blocks come out (E, nb, ...) on ``a_data``'s device.  No host
+    synchronisation inside: the diagnostic count stays a device tensor
+    (E,).  ``parts`` (:func:`_mesh_parts`) splits buckets over a mesh: each
+    part is assembled and factored on its shard's device, a child bucket's
+    updates are gathered in shard order to each device that assembles a
+    parent part (once a device, whatever the parts there) before the
+    extend-add reads them, and a split bucket's blocks are gathered back to
+    ``a_data``'s device."""
+    from sparse_linear_tpu_torch.dist.collectives import fresh, gather
+
     flat = symbolic.schedule["flat"]
     bucket_fn = (_bucket_factor_cholesky if kind == "cholesky"
                  else _bucket_factor)
     ne = a_data.shape[0]
     dtype, device = a_data.dtype, a_data.device
+    a_on = {device: a_data}
     blocks = {}
-    updates = {}
+    updates = {}  # bucket -> its Schur updates: (E, nb_part, Us, Us) a part
     pending = dict(dm["readers"])
     n_flag = torch.zeros(ne, dtype=torch.int64, device=device)
     for lvl_buckets in symbolic.schedule["level_buckets"]:
@@ -591,34 +641,63 @@ def _factor_run(symbolic: MFSymbolic, dm, a_data, kind: str,
             nb = b["sup_ids"].shape[0]
             ns_c, us_c = b["Ns"], b["Us"]
             fs = ns_c + us_c
-            front = torch.zeros((ne, nb * fs * fs), dtype=dtype,
-                                device=device)
-            am = dm["a"][bidx]
-            if am["src"].shape[0]:
-                front.index_add_(1, am["dst"],
-                                 a_data.index_select(1, am["src"]))
-            for cb, src, dst in dm["children"][bidx]:
-                front.index_add_(
-                    1, dst, updates[cb].reshape(ne, -1).index_select(1, src))
+            split = None if parts is None else parts[bidx]
+            if split is None:
+                am = dm["a"][bidx]
+                split = [(device, am["src"], am["dst"], dm["children"][bidx],
+                          dm["pad"][bidx])]
+            fronts = []
+            got = {}  # (child bucket, device): its updates gathered there
+            for dev, a_src, a_dst, children, pad in split:
+                if dev not in a_on:
+                    a_on[dev] = fresh(a_data, dev)
+                nbp = pad.shape[0]
+                front = torch.zeros((ne, nbp * fs * fs), dtype=dtype,
+                                    device=dev)
+                if a_src.shape[0]:
+                    front.index_add_(1, a_dst,
+                                     a_on[dev].index_select(1, a_src))
+                for cb, src, dst in children:
+                    if (cb, dev) not in got:
+                        u = updates[cb]
+                        got[cb, dev] = (
+                            u[0] if len(u) == 1 and u[0].device == dev
+                            else gather(u, dev, dim=1)).reshape(ne, -1)
+                    front.index_add_(1, dst,
+                                     got[cb, dev].index_select(1, src))
+                front = front.view(ne, nbp, fs, fs)
+                torch.diagonal(front, dim1=2, dim2=3)[..., :ns_c] += \
+                    pad.to(dtype)
+                fronts.append(front)
+            del got
+            for cb, _, _ in dm["children"][bidx]:
                 pending[cb] -= 1
                 if pending[cb] == 0:
                     del updates[cb]
-            front = front.view(ne, nb, fs, fs)
-            torch.diagonal(front, dim1=2, dim2=3)[..., :ns_c] += \
-                dm["pad"][bidx].to(dtype)
-            lu, permutation, g21, g12, schur, nf = bucket_fn(
-                front.view(ne * nb, fs, fs), ns_c, pivot_eps)
-            del front
-            n_flag += nf.view(ne, nb).sum(dim=1)
+            out = []
+            while fronts:
+                front = fronts.pop(0)
+                nbp = front.shape[1]
+                out.append((nbp,) + bucket_fn(front.view(ne * nbp, fs, fs),
+                                              ns_c, pivot_eps))
+                del front
+
+            def joined(i, shape):
+                ts = [o[i].reshape((ne, o[0]) + shape) for o in out]
+                return ts[0] if len(ts) == 1 else gather(ts, device, dim=1)
+
+            for o in out:
+                n_flag += o[6].view(ne, o[0]).sum(dim=1).to(device)
             blocks[bidx] = {
-                "lu": lu.reshape(ne, nb, ns_c, ns_c),
-                "perm": permutation.reshape(ne, nb, ns_c),
-                "g21": g21.reshape(ne, nb, us_c, ns_c),
-                "g12": g12.reshape(ne, nb, ns_c, us_c),
+                "lu": joined(1, (ns_c, ns_c)),
+                "perm": joined(2, (ns_c,)),
+                "g21": joined(3, (us_c, ns_c)),
+                "g12": joined(4, (ns_c, us_c)),
             }
             if pending.get(bidx):
-                updates[bidx] = schur
-            del schur
+                updates[bidx] = [o[5].view(ne, o[0], us_c, us_c)
+                                 for o in out]
+            del out
     blocks[-1] = {"n_flag": n_flag}
     return blocks
 
@@ -667,11 +746,15 @@ def factor(mat, symbolic: MFSymbolic, kind: str = "lu",
     ``scale``: "sum" or "max" enables equilibration before factorization
     (UMFPACK's row scaling; symmetric sqrt scaling for Cholesky); solves
     unscale transparently.  ``pivot_eps``: static pivot perturbation (LU).
-    ``mesh``/``batch_axis`` raise ``NotImplementedError``."""
-    if mesh is not None or batch_axis is not None:
-        raise NotImplementedError(
-            "factor: mesh=/batch_axis= (multi-device multifrontal) is not "
-            "ported yet (ROADMAP.md queue 1 item 8: multi-device)")
+
+    ``mesh`` (a ``dist.mesh.Mesh``): each bucket's independent fronts are
+    split over ``mesh.shards(batch_axis or mesh.axis_names[0])``: a bucket
+    whose front count divides by the shard count is assembled and factored
+    in contiguous groups, one a shard, on the shard's device; any other
+    bucket stays whole on the first shard (the JAX package replicates it).
+    The factor blocks come back gathered on the first shard's device, in
+    the layout every solve and query takes.  On the CPU they are bitwise
+    the unsharded factorization's."""
     mat = trim(mat.tocsr())
     n = symbolic.n
     if mat.shape != (n, n):
@@ -682,13 +765,18 @@ def factor(mat, symbolic: MFSymbolic, kind: str = "lu",
             "(analyze once per pattern, factor per value set)"
         )
     a_data = mat.data
+    devices = None
+    if mesh is not None:
+        devices = mesh.shards(batch_axis or mesh.axis_names[0])
+        a_data = a_data.to(devices[0])
     dm = _device_maps(symbolic, a_data.device)
+    parts = None if devices is None else _mesh_parts(symbolic, dm, devices)
     rscale = None
     if scale != "none":
         a_data, rscale = _equilibrate(a_data, symbolic, dm, kind, scale)
     peps = float(pivot_eps) if pivot_eps else 0.0
     with _full_f32():
-        blocks = _factor_run(symbolic, dm, a_data[None], kind, peps)
+        blocks = _factor_run(symbolic, dm, a_data[None], kind, peps, parts)
     blocks = {k: {name: t[0] for name, t in blk.items()}
               for k, blk in blocks.items()}
     if rscale is not None:

@@ -1017,3 +1017,63 @@ def test_direct_refined_on_card(dev):
         x, info = api.solve_refined(f, a64, b, tol=1e-10, max_iter=4)
         assert x.device.type == "cuda" and info.converged
         assert float(api.residual_norm(a64, x, b)) <= 1e-10
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex128])
+@pytest.mark.parametrize("exchange", ["halo", "allgather"])
+def test_sharded_dia_on_four_shards_is_kernel_a(dev, dtype, exchange):
+    """Kernel A on each of four shards of a card mesh (the halo-extended or
+    gathered x): within tolerance of the plain product on the same x and
+    bitwise the unsharded kernel A, every piece on the card, four launches
+    a product."""
+    from sparse_linear_tpu_torch.dist import card_mesh
+    from sparse_linear_tpu_torch.dist.spmv import (
+        dia_spmv_sharded,
+        shard_dia_rows,
+    )
+
+    mesh = card_mesh(4)
+    a = poisson_2d(256, dtype=dtype, fmt="dia", device=dev)
+    x = torch.randn(256 * 256, dtype=dtype, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    sh = shard_dia_rows(a, mesh)
+    before = dia_spmv_kernel.launches
+    y = dia_spmv_sharded(sh, x, mesh, exchange=exchange)
+    assert dia_spmv_kernel.launches - before == 4
+    assert all(p.device.type == "cuda" for p in y.pieces)
+    assert _rel(y.full(), dia_spmv(a, x)) <= RTOL[dtype]
+    assert torch.equal(y.full(), dia_spmv_kernel(a, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("exchange", ["window", "allgather"])
+def test_sharded_well_on_four_shards_is_kernel_c(dev, dtype, exchange):
+    """Kernel C on each of four shards (the stencil-order operator: a
+    window plan or the gathered x) and on the permuted one (all-gather):
+    within 1e-12 of the plain product and of the unsharded kernel C on the
+    same x."""
+    from sparse_linear_tpu_torch.dist import card_mesh
+    from sparse_linear_tpu_torch.dist.spmv import (
+        shard_well_rows,
+        spmv_sharded,
+    )
+
+    mesh = card_mesh(4)
+    g = 128
+    gen = torch.Generator(device=dev).manual_seed(5)
+    csr = poisson_2d(g, dtype=dtype, device=dev)
+    perm = torch.randperm(g * g, device=dev, generator=gen)
+    coo = csr.tocoo()
+    permuted = st.from_triples(csr.shape, perm[coo.row.long()],
+                               perm[coo.col.long()], coo.data).tocsr()
+    x = torch.randn(g * g, dtype=dtype, device=dev, generator=gen)
+    for mat, ex in ((csr, exchange), (permuted, "allgather")):
+        sh = shard_well_rows(mat, mesh, exchange=ex)
+        assert (sh.xplan is not None) == (ex == "window")
+        before = well_spmv.launches
+        y = spmv_sharded(sh, x, mesh)
+        assert well_spmv.launches - before == 4
+        w = csr_to_well(mat)
+        assert _rel(y.full(), well_spmv_plain(w, x)) <= 1e-12
+        assert _rel(y.full(), well_spmv(w, x)) <= 1e-12

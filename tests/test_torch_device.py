@@ -60,8 +60,10 @@ def _cpu_tensor(a):
 
 
 def _devices(m):
+    # "row" / "col" are COO's index fields and CSR's / CSC's segment methods
     return {f.device.type for f in (getattr(m, n, None) for n in (
-        "data", "indptr", "indices", "row", "col")) if f is not None}
+        "data", "indptr", "indices", "row", "col"))
+        if isinstance(f, torch.Tensor)}
 
 
 @pytest.mark.parametrize("how", ["no_device", "cpu"])

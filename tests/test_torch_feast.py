@@ -27,6 +27,7 @@ import sparse_linear_tpu as sl  # noqa: E402
 from sparse_linear_tpu.eig import feast as jfeast  # noqa: E402
 from sparse_linear_tpu.utils import grids as jgrids  # noqa: E402
 import sparse_linear_tpu_torch as st  # noqa: E402
+from sparse_linear_tpu_torch.dist import Mesh  # noqa: E402
 from sparse_linear_tpu_torch.eig import feast as tfeast  # noqa: E402
 from sparse_linear_tpu_torch.eig import pipeline  # noqa: E402
 from sparse_linear_tpu_torch.eig.feast import (  # noqa: E402
@@ -377,8 +378,9 @@ def test_invalid_args():
         eigsh(2, (0.0, 1.0), a, FeastParams(complex_strategy="embedded"))
     with pytest.raises(ValueError, match="contour_batching"):
         eigsh(2, (0.0, 1.0), a, FeastParams(contour_batching="scan"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eigsh(2, (0.0, 1.0), a, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 11"):
+        eigsh(2, (0.0, 1.0), a, mesh=Mesh(np.array(["cpu"] * 4).reshape(
+            2, 2), ("cp", "rows")))
     with pytest.raises(ValueError, match="quadrature"):
         eigsh(2, (0.0, 1.0), a, FeastParams(quadrature="bogus"))
 

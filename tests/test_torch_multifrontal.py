@@ -432,12 +432,18 @@ def test_pattern_mismatch_rejected():
 
 
 def test_mesh_raises():
+    """``mesh=`` is ported (``tests/test_torch_dist.py``): a mesh without
+    the batch axis asked for raises, through ``mf.factor`` and through
+    ``api.factor``."""
+    from sparse_linear_tpu_torch.dist import Mesh
+
     _, a = _pair("spd")
     _, s = _symbolics(dims=(G, G))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        mf.factor(a, s, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        api.factor(a, s, backend="multifrontal", batch_axis="x")
+    mesh = Mesh(["cpu"] * 2, ("fronts",))
+    with pytest.raises(ValueError, match="no axis 'x'"):
+        mf.factor(a, s, mesh=mesh, batch_axis="x")
+    with pytest.raises(ValueError, match="no axis 'x'"):
+        api.factor(a, s, backend="multifrontal", mesh=mesh, batch_axis="x")
 
 
 def test_full_f32_under_a_tf32_setting(monkeypatch):

@@ -137,3 +137,24 @@ def test_jax_state_round_trip(dtype):
     for name, a in arrays.items():
         np.testing.assert_array_equal(back[name], a)
     _same(from_arrays(kind, back, shape, device="cpu"), j)
+
+
+def test_csr_row_and_csc_col_match_jax(dtype):
+    """``CSR.row`` / ``CSC.col`` cut one segment as a sparse vector, as
+    the JAX methods do: every row of a random CSR and every column of its
+    CSC, empty ones included; an index out of range raises."""
+    rng = np.random.default_rng(75)
+    nr, nc, n = 7, 9, 20
+    rows, cols = rng.integers(0, nr, n), rng.integers(0, nc, n)
+    vals = _vals(rng, n, dtype)
+    j = sl.from_triples((nr, nc), rows, cols, vals).tocsr()
+    t = st.from_triples((nr, nc), rows, cols, vals, device="cpu").tocsr()
+    for i in range(nr):
+        _same(t.row(i), j.row(i))
+    jc, tc = j.tocsc(), t.tocsc()
+    for k in range(nc):
+        _same(tc.col(k), jc.col(k))
+    with pytest.raises(IndexError):
+        t.row(nr)
+    with pytest.raises(IndexError):
+        tc.col(-1)
