@@ -172,9 +172,27 @@ NVIDIA GPU:
    contour-sharded FEAST on phase 8's lowest-50 windows of 192**2 and
    1,048,576 dof (cold and warm; INFO_OK, epsout and the analytic spectrum
    <= 1e-10, phase 8's loops, phase 8's eigenvalues within 1e-12 on the
-   interval's scale, peak < 75 GB); (g) ``entry.dryrun_multichip(4)``.
+   interval's scale, peak < 75 GB); (g) ``entry.dryrun_multichip(4)``;
+   (h) the row-sharded FEAST subspace on ``card_mesh((2, 2), ("cp",
+   "rows"))``, each window run right after (f)'s on the same operator (the
+   pipeline's host analyze shared): the lowest 50 of 192**2 (DIA route),
+   phase 8's permuted 192**2 without dims (WELL route, kernel D slabs) and
+   1,048,576 dof, m0 = 80, 8 Gauss nodes, cold and warm, with the launch
+   counts of kernel A's multi-RHS form and kernel D set to 0 before each
+   window and read after (INFO_OK, epsout and the analytic spectrum <=
+   1e-10, phase 8's loops and eigenvalues within 1e-12, 2 contour and 2
+   rows shards, peak < 75 GB, each kernel launched), the row-sharded
+   product of A at (n, 80) held against the unsharded kernel (DIA slabs
+   bitwise) and the plain version (1e-12); printed: cold and warm s, the
+   contour mode and why, rows a shard, the elements of X a shard receives
+   a product against the all-gather's, the warm split into solves,
+   products, Grams and host eighs.
+13. Walkthroughs (``walkthrough_phase``): ``examples/torch_*.py``, each in
+   its own process on the card, one after another: exit code 0 and a
+   first line naming a CUDA device; each one's wall time.
 
-Prints one JSON line of phase 12 (``multidevice``), one of the Chebyshev
+Prints one JSON line of phase 13 (``walkthroughs``), one of phase 12
+(``multidevice``, (h) under ``row_sharded_feast``), one of the Chebyshev
 runs of phase 10 (``chebyshev``),
 one of phase 11 (``checkpoints``), one JSON line of the FEAST runs of
 phases 8 and 9 (``feast``: wall cold / warm,
@@ -188,8 +206,9 @@ no library call computes the function, ``launches`` from the main paths,
 ``dia_spmm_c128``, ``well_spmv_c128`` and ``well_spmm_c128``, launches from
 phase 9; ``launches_phase10`` beside the f64 ``dia_spmm`` and
 ``well_spmm`` entries' own; ``launches_phase12`` beside the ``dia_spmv``
-(f32), f64 ``well_spmv`` and f64 ``dia_spmm`` entries'), then as the last
-line
+(f32), f64 ``well_spmv`` and f64 ``dia_spmm`` entries', and
+``launches_phase12h`` (phase 12 (h)) beside the f64 ``dia_spmm`` and
+``well_spmm`` entries'), then as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
 is then non-zero and the last line is not printed.  Without a CUDA device,
 or without the package beside this script, it fails before any result.
@@ -1259,7 +1278,8 @@ def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64),
     window is copied to the host for phase 11 with its grid, window,
     parameters and the loops of its cold run (``keep["subspace"]``), and the
     eigenvalues and loops of the lowest-50 windows by grid
-    (``keep["feast"]``, for phase 12)."""
+    (``keep["feast"]``, for phase 12), with the permuted operator's under
+    ``"permuted"`` beside the operator on the host."""
     import numpy as np
     import torch
 
@@ -1349,6 +1369,9 @@ def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64),
     require(rows[-1]["routes"][0] == "well" and rows[-1]["launches"] >= 1,
             f"permuted run: routes {rows[-1]['routes']}, well_spmm "
             f"launches {rows[-1]['launches']}")
+    if keep is not None:
+        keep.setdefault("feast", {})["permuted"] = (
+            np.sort(np.asarray(res.values)), res.iterations, ap.to("cpu"))
     del ap, res
     pipeline.clear_pipeline_cache()
 
@@ -2218,7 +2241,27 @@ def multidevice_phase(dev, card: str, seed: int, refs: dict,
     del fs, f64s, x, a32, a64, b64, host, sym
     torch.cuda.empty_cache()
 
-    # ---- (f) contour-sharded FEAST: phase 8's lowest windows
+    # ---- (h) the row-sharded subspace: FEAST on a (cp, rows) mesh (each
+    # window run right after (f)'s on the same operator, so the pipeline's
+    # host analyze is not paid twice)
+    h_mesh = card_mesh((2, 2), ("cp", "rows"))
+    out["row_sharded_feast"] = []
+    # (h)'s kernels, counted apart from (a)-(f)
+    h_counts = {"dia_spmm_kernel": 0, "well_spmm": 0}
+    print(f"phase 12 (h) mesh: {h_mesh.layout()}; contour shards on "
+          f"{[str(d) for d in h_mesh.shards('cp')]}, rows shards on "
+          f"{[str(d) for d in h_mesh.shards('rows')]}", flush=True)
+
+    def row_sharded(*args):
+        row = row_sharded_feast(dev, card, h_mesh, *args, gen=mgen,
+                                parity_abs=parity_abs)
+        out["row_sharded_feast"].append(row)
+        for k, c in row["launches"].items():
+            h_counts[k] += c
+        return row
+
+    # ---- (f) contour-sharded FEAST: phase 8's lowest windows, each
+    # followed by (h) on the same operator
     pipeline.clear_pipeline_cache()
     cp = card_mesh(n_shards, ("cp",))
     out["feast"] = []
@@ -2265,16 +2308,35 @@ def multidevice_phase(dev, card: str, seed: int, refs: dict,
                 f"{res.iterations} loops, phase 8 {ref_loops}")
         require(d8 <= 1e-12, f"against phase 8: {d8}")
         require(peaks[-1] < 75.0, f"peak {peaks[-1]} GB")
-        del af, res
+        del res
+        hrow = row_sharded(f"lowest 50 of {gf}^2", af, (0.0, emax), lam[:50],
+                           refs["feast"][gf], p, "dia")
+        peaks.append(hrow["peak_gb"])
+        del af
         pipeline.clear_pipeline_cache()
         torch.cuda.empty_cache()
+        if gf == grids[2]:
+            # phase 8's permuted operator, no dims: the WELL route
+            pvals, ploops, pcsr = refs["feast"]["permuted"]
+            hrow = row_sharded(
+                f"lowest 50 of {gf}^2 permuted", pcsr.to(dev), (0.0, emax),
+                lam[:50], (pvals, ploops),
+                FeastParams(tol=1e-10, backend="multifrontal"), "well")
+            peaks.append(hrow["peak_gb"])
+            pipeline.clear_pipeline_cache()
+            torch.cuda.empty_cache()
 
     launches = {k.__name__: k.launches for k in kernels}
     out["launches"] = launches
-    print(f"phase 12 launches over (a)-(f): {launches}", flush=True)
+    out["launches_h"] = h_counts
+    print(f"phase 12 launches over (a)-(f): {launches}; over (h): "
+          f"{h_counts}", flush=True)
     require(all(v >= 1 for v in launches.values()),
             f"a kernel of the multi-device path was not launched: "
             f"{launches}")
+    require(all(v >= 1 for v in h_counts.values()),
+            f"a kernel of the row-sharded FEAST path was not launched: "
+            f"{h_counts}")
 
     # ---- (g) the multi-device dry run on the card
     dry, dry_s = timed(lambda: dryrun_multichip(n_shards))
@@ -2286,10 +2348,184 @@ def multidevice_phase(dev, card: str, seed: int, refs: dict,
     return out
 
 
+def row_sharded_feast(dev, card: str, mesh, name, a, interval, want, ref,
+                      params, route, gen, parity_abs: dict) -> dict:
+    """Phase 12 (h), one window: FEAST's 50 lowest pairs (m0 = 80) on the
+    ("cp", "rows") ``mesh``, cold then warm, with the launch counts of
+    kernel A's multi-RHS form and kernel D set to 0 before and read after
+    (the counts the caller had are restored); then the row-sharded product
+    of A at (n, 80) (a block drawn from ``gen``) held against the unsharded
+    kernel and the plain version, those launches left out.  ``ref``:
+    phase 8's (sorted eigenvalues, loops) on the window; ``route``: the
+    route A must take ("dia" or "well").  Returns the row of the
+    ``row_sharded_feast`` list, with the launches under ``launches``; any
+    failed check raises."""
+    import numpy as np
+    import torch
+
+    from sparse_linear_tpu_torch.dist import Mesh, ShardedBlock
+    from sparse_linear_tpu_torch.dist import spmv as ds
+    from sparse_linear_tpu_torch.eig import pipeline
+    from sparse_linear_tpu_torch.eig.feast import INFO_OK, eigsh
+    from sparse_linear_tpu_torch.formats.well import csr_to_well
+    from sparse_linear_tpu_torch.kernels.spmv import dia_spmm
+    from sparse_linear_tpu_torch.kernels.spmv_dia import (
+        dia_spmm_kernel,
+        dia_spmv_kernel,
+    )
+    from sparse_linear_tpu_torch.kernels.spmv_well import (
+        well_spmm,
+        well_spmm_planes_plain,
+        well_spmv,
+    )
+
+    h_kernels = (dia_spmm_kernel, well_spmm)
+    every = h_kernels + (dia_spmv_kernel, well_spmv)
+    cards = sorted({d for d in mesh.devices.flat}, key=str)
+    rows_mesh = Mesh(mesh.shards("rows"), ("rows",))
+    ref_vals, ref_loops = ref[:2]
+    saved = [k.launches for k in every]
+    for k in h_kernels:
+        k.launches = 0
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    res, cold_s = timed(lambda: eigsh(80, interval, a, params, mesh=mesh))
+    cold = dict(pipeline.last_run)
+    res, warm_s = timed(lambda: eigsh(80, interval, a, params, mesh=mesh))
+    warm = dict(pipeline.last_run)
+    peaks = {str(c): torch.cuda.max_memory_allocated(c) / 1e9 for c in cards}
+    peak = max(peaks.values())
+    counts = {k.__name__: k.launches for k in h_kernels}
+    err, _ = feast_errors(res, want, interval)
+    scale = max(abs(interval[0]), abs(interval[1]), 1.0)
+    d8 = float(np.max(np.abs(np.sort(res.values) - ref_vals))) / scale
+    n = a.shape[0]
+    # the products the loop ran, held against the unsharded kernel and the
+    # plain version on one (n, 80) block
+    sop = pipeline._structured_op(a)
+    rop = pipeline._row_op(sop, rows_mesh)
+    x = torch.randn((n, 80), dtype=torch.float64, device=dev, generator=gen)
+    y = rop(ShardedBlock.from_tensor(x, rows_mesh)).full(dev)
+    whole = sop(x)
+    shards = len(rows_mesh.shards("rows"))
+    gathered = (shards - 1) * -(-n // shards) * 80
+    if route == "dia":
+        plain = dia_spmm(sop.mat, x)
+        exchange, shipped = (("halo", 2 * rop.mat.halo * 80)
+                             if rop.mat.halo_slabs is not None
+                             else ("all-gather", gathered))
+    else:
+        plain = well_spmm_planes_plain(csr_to_well(sop.mat), x.T).T
+        exchange, shipped = (
+            ("window", ds.window_exchange_elements(rop.mat.xplan) * 80)
+            if rop.mat.xplan is not None else ("all-gather", gathered))
+    same = bool(torch.equal(y, whole))
+    torch.cuda.synchronize()
+    unsh_abs, unsh_rel = max_err(y, whole)
+    plain_abs, plain_rel = max_err(y, plain)
+    for k, c in zip(every, saved):
+        k.launches = c
+    parity_abs[f"phase 12 (h) spmm_sharded {route} {name}"] = plain_abs
+    r_local = warm["rows_local"]
+    split = {k: sum(lp[k] for lp in warm["loops"])
+             for k in ("solve_s", "products_s", "gram_s", "eigh_s")}
+    row = {"name": f"{name} on (cp, rows) (2, 2)", "n": n, "route": route,
+           "layout": mesh.layout(), "cold_s": cold_s, "warm_s": warm_s,
+           "loops": res.iterations, "phase8_loops": ref_loops,
+           "epsout": res.epsout, "max_err_scaled": err, "vs_phase8": d8,
+           "mode": warm["mode"], "shard_mode": warm["shard_mode"],
+           "why": warm["why"], "contour_shards": warm["shards"],
+           "rows_shards": warm["rows_shards"], "rows_local": r_local,
+           "exchange": exchange, "received_per_product": shipped,
+           "allgather_per_product": gathered,
+           "cold_analyze_s": cold["analyze_s"],
+           "cold_factor_s": cold["factor_s"], "warm_split": split,
+           "products_vs_unsharded_rel": unsh_rel,
+           "products_bitwise_unsharded": same,
+           "products_vs_plain_rel": plain_rel, "launches": counts,
+           "peak_gb": peak, "peak_gb_by_card": peaks}
+    print(f"phase 12 [{card}] (h) row-sharded FEAST {row['name']}: cold "
+          f"{cold_s:.3f} s (analyze {cold['analyze_s']:.3f} s, factor "
+          f"{cold['factor_s']:.3f} s), warm {warm_s:.3f} s; "
+          f"{res.iterations} loops (phase 8: {ref_loops}), epsout "
+          f"{res.epsout:.3e}, against the analytic spectrum {err:.3e} and "
+          f"phase 8 {d8:.3e} on the interval's scale (tol 1e-10, 1e-12); "
+          f"peak {peak:.3f} GB (tol 75; by card {peaks})", flush=True)
+    print(f"phase 12 [{card}] (h) {name}: contour {warm['mode']} "
+          f"({warm['why']}) on {warm['shards']}; route {route}, rows shards "
+          f"{warm['rows_shards']} of {r_local} rows; a shard receives "
+          f"{shipped} elements of X a product ({exchange}) against the "
+          f"all-gather's {gathered}; warm split: solves "
+          f"{split['solve_s']:.3f} s, products {split['products_s']:.3f} s, "
+          f"Grams {split['gram_s']:.3f} s, host eighs {split['eigh_s']:.3f} "
+          f"s; launches {counts}", flush=True)
+    print(f"phase 12 [{card}] (h) {name}: row-sharded product of A at "
+          f"(n, 80) against the unsharded kernel: max rel err "
+          f"{unsh_rel:.3e}, bitwise {same}; against the plain version "
+          f"{plain_rel:.3e} (tol 1e-12)", flush=True)
+    require(res.info == INFO_OK and res.epsout <= 1e-10 and err <= 1e-10,
+            f"row-sharded FEAST {name}: info {res.info}, epsout "
+            f"{res.epsout}, err {err}")
+    require(warm["mode"] == "sharded" and len(warm["shards"]) == 2
+            and len(warm["rows_shards"]) == 2,
+            f"(h) {name}: contour {warm['mode']} on {warm['shards']}, rows "
+            f"on {warm['rows_shards']}")
+    require(warm["routes"][0] == route, f"(h) {name}: {warm['routes']}")
+    require(res.iterations == ref_loops,
+            f"(h) {name}: {res.iterations} loops, phase 8 {ref_loops}")
+    require(d8 <= 1e-12, f"(h) {name} against phase 8: {d8}")
+    require(peak < 75.0, f"(h) {name}: peak {peak} GB")
+    require(res.vectors.device == a.data.device
+            and tuple(res.subspace.shape) == (n, 80),
+            f"(h) {name}: vectors on {res.vectors.device}")
+    require(unsh_rel <= 1e-12 and plain_rel <= 1e-12,
+            f"(h) {name}: sharded product {unsh_rel}, {plain_rel}")
+    require(route != "dia" or same,
+            f"(h) {name}: DIA slabs not bitwise the unsharded kernel")
+    kernel = {"dia": "dia_spmm_kernel", "well": "well_spmm"}[route]
+    require(counts[kernel] >= 1,
+            f"(h) {name}: the route's kernel was not launched: {counts}")
+    return row
+
+WALKTHROUGHS = ("torch_poisson_direct.py", "torch_eigensolve.py",
+                "torch_distributed.py", "torch_kernels_f64.py")
+
+
+def walkthrough_phase(card: str, timeout_s: float = 300.0) -> list:
+    """Phase 13: the port's walkthroughs (``examples/torch_*.py``), each in
+    its own process on the card (their default), one after another: exit
+    code 0 and a first line naming a CUDA device, and the wall time of
+    each.  Returns the rows of the ``walkthroughs`` JSON line; any failed
+    check raises."""
+    rows = []
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for script in WALKTHROUGHS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / script)], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=timeout_s)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        first = lines[0] if lines else ""
+        rows.append({"script": f"examples/{script}", "rc": proc.returncode,
+                     "wall_s": wall, "device_line": first,
+                     "last_line": lines[-1] if lines else ""})
+        print(f"phase 13 [{card}] examples/{script}: rc {proc.returncode} "
+              f"in {wall:.3f} s wall; {first!r}; last line "
+              f"{rows[-1]['last_line']!r}", flush=True)
+        require(proc.returncode == 0,
+                f"examples/{script} exited {proc.returncode}: "
+                f"{proc.stderr[-2000:]}")
+        require(first.startswith("device: cuda"),
+                f"examples/{script} ran on {first!r}")
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -3285,6 +3521,10 @@ def main() -> None:
         parity_abs)
     del cholesky
 
+    # ------------------------------------------------- 13. walkthroughs
+    torch.cuda.empty_cache()
+    walkthroughs = walkthrough_phase(card)
+
     def entry_of(name, dtype, replaces, launches_of, err, shape, also=(),
                  label=None):
         t = times[f"{name} {dtype}"]
@@ -3306,31 +3546,42 @@ def main() -> None:
 
     spmm_entry = entry_of(
         "well_spmm", f64, f"{PALLAS_WELL}:335", "well_spmm",
-        parity_abs[f"well_spmm permuted 2048^2 {f64} m=16"],
+        max(v for k, v in parity_abs.items()
+            if k == f"well_spmm permuted 2048^2 {f64} m=16"
+            or k.startswith("phase 12 (h) spmm_sharded well")),
         "permuted poisson 2048^2 f64, m=16, kernel D alone (column-major "
-        "X); planes_ms adds well_spmm_planes' copy, L2 flushed",
+        "X); planes_ms adds well_spmm_planes' copy, L2 flushed; "
+        "max_abs_err also over phase 12 (h)'s WELL slabs at m=80",
         (f"{PALLAS_WELL}:385", f"{PALLAS_WELL64}:284"))
     spmm_entry["readings"] = readings
     spmm_entry["more_m"] = more_m
     spmm_entry["launches_phase10"] = cheb_launches["well_spmm"]
+    spmm_entry["launches_phase12h"] = multi["launches_h"]["well_spmm"]
 
     spmm_dia_entry = entry_of(
         "dia_spmm", f64, f"{XLA_SPMV}:45", "dia_spmm",
         max(v for k, v in parity_abs.items()
-            if k.startswith("dia_spmm") and "float64" in k),
+            if k.startswith("dia_spmm") and "float64" in k
+            or k.startswith("phase 12 (h) spmm_sharded dia")),
         "poisson_2d(1024) f64, m=80 column-major X (FEAST's shape), L2 "
-        "flushed; launches from the FEAST path (phase 8); the XLA forms "
-        "dia_spmm / dia_spmm_planes are not pallas_call sites",
+        "flushed; launches from the FEAST path (phase 8); max_abs_err also "
+        "over phase 12 (h)'s DIA slabs; the XLA forms dia_spmm / "
+        "dia_spmm_planes are not pallas_call sites",
         (f"{XLA_SPMV}:68",))
     spmm_dia_entry["readings"] = dia_spmm_readings
     spmm_dia_entry["launches_phase10"] = cheb_launches["dia_spmm"]
     spmm_dia_entry["launches_phase12"] = multi["launches"]["dia_spmm_kernel"]
+    spmm_dia_entry["launches_phase12h"] = (
+        multi["launches_h"]["dia_spmm_kernel"])
 
     def with12(entry, wrapper):
         """The entry with its kernel's launches on phase 12's path."""
         entry["launches_phase12"] = multi["launches"][wrapper]
         return entry
 
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s wall, "
+          f"build included", flush=True)
+    print(json.dumps({"walkthroughs": walkthroughs, "card": card}))
     print(json.dumps({"multidevice": multi, "card": card}))
     print(json.dumps({"chebyshev": cheb_rows, "card": card}))
     print(json.dumps({"checkpoints": ckpt_rows, "card": card}))

@@ -13,6 +13,11 @@ JAX package's arrays under ``NamedSharding(mesh, P(axis))``.
   ``__torch_function__``, so ``solve.cg.cg`` runs on it unchanged: each
   reduction is a per-shard reduction and a psum onto the first shard's
   device, in shard order.
+* :class:`ShardedBlock` is the same for an (n, m) block of columns (the
+  FEAST subspace): (rows, m) pieces, with the reductions FEAST's
+  Rayleigh-Ritz step needs: the Gram product p^H q, the product with a
+  small m x m matrix and the column norms, each a per-shard launch and,
+  for the reductions, a psum in shard order.
 * :class:`ShardedDIA` is a DIA operator row-sharded over the mesh: each
   shard's slab of ``data``, and the two local operators the exchanges run
   kernel A on, built once on the shard's device.
@@ -27,12 +32,13 @@ import torch
 from sparse_linear_tpu_torch.dist.collectives import gather, psum
 from sparse_linear_tpu_torch.formats.structured import DIA
 
-__all__ = ["ShardedVector", "ShardedDIA", "split"]
+__all__ = ["ShardedVector", "ShardedBlock", "ShardedDIA", "split"]
 
 
 def split(x: torch.Tensor, devices, block: int) -> list:
-    """``x`` cut into ``len(devices)`` pieces of ``block`` entries (the last
-    zero-padded), each a fresh tensor on its shard's device."""
+    """``x`` cut along its first dimension into ``len(devices)`` pieces of
+    ``block`` rows (the last zero-padded), each a fresh tensor on its
+    shard's device."""
     n = x.shape[0]
     total = block * len(devices)
     if n > total:
@@ -40,7 +46,8 @@ def split(x: torch.Tensor, devices, block: int) -> list:
     pieces = []
     for d, dev in enumerate(devices):
         lo, hi = min(d * block, n), min((d + 1) * block, n)
-        p = torch.zeros((block,), dtype=x.dtype, device=dev)
+        p = torch.zeros((block,) + tuple(x.shape[1:]), dtype=x.dtype,
+                        device=dev)
         p[:hi - lo] = x[lo:hi]
         pieces.append(p)
     return pieces
@@ -110,7 +117,7 @@ class ShardedVector:
                       else device)[:self.length]
 
     def _like(self, pieces) -> "ShardedVector":
-        return ShardedVector(self.mesh, self.axis, pieces, self.length)
+        return type(self)(self.mesh, self.axis, pieces, self.length)
 
     def _check(self, other) -> None:
         if isinstance(other, ShardedVector) and (
@@ -203,6 +210,47 @@ class ShardedVector:
                 f"dtype={self.dtype}, devices={self.devices})")
 
 
+class ShardedBlock(ShardedVector):
+    """An (n, m) block row-sharded over ``mesh[axis]``: ``pieces[d]`` is
+    shard d's (rows, m) piece on its device, in the layout of
+    :class:`ShardedVector` (rows past ``length`` zero).  The reductions
+    land on the first shard's device, psum'd in shard order."""
+
+    @property
+    def width(self) -> int:
+        return int(self.pieces[0].shape[1])
+
+    def gram(self, other: "ShardedBlock") -> torch.Tensor:
+        """self^H other, (m, m'): each shard's p^H q, psum'd."""
+        self._check(other)
+        return psum([p.mH @ q for p, q in zip(self.pieces, other.pieces)],
+                    self.device)
+
+    def __matmul__(self, mat) -> "ShardedBlock":
+        """The product with a small (m, m') matrix (a tensor or a numpy
+        array), copied once to each device: one product a shard."""
+        mat = torch.as_tensor(mat)
+        on: dict = {}
+        out = []
+        for p in self.pieces:
+            if p.device not in on:
+                on[p.device] = mat.to(device=p.device, dtype=p.dtype)
+            out.append(p @ on[p.device])
+        return self._like(out)
+
+    def col_norms(self) -> torch.Tensor:
+        """The (m,) 2-norms of the columns: the psum of each shard's squared
+        column norms, then the square root."""
+        return torch.sqrt(psum(
+            [torch.linalg.vector_norm(p, dim=0) ** 2 for p in self.pieces],
+            self.device))
+
+    def __repr__(self) -> str:
+        return (f"ShardedBlock(length={self.length}, width={self.width}, "
+                f"blocks={self.blocks}, dtype={self.dtype}, "
+                f"devices={self.devices})")
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ShardedDIA:
     """A DIA operator row-sharded over ``mesh[axis]``: ``data[d]`` is shard
@@ -216,7 +264,10 @@ class ShardedDIA:
       with r0 = d n_local, over the all-gathered x.
 
     Their ``offsets_tensor`` is made here, once, so that no SpMV copies
-    offsets to the card."""
+    offsets to the card.  ``n_local`` is a slab's rows; a square operator
+    whose rows the shards do not divide is zero-padded to ``n_local``
+    times the shards (``shard_dia_rows(pad=True)``), while ``shape`` stays
+    the operator's own."""
 
     data: list
     shape: tuple
@@ -227,9 +278,14 @@ class ShardedDIA:
     halo_slabs: list | None
     gather_slabs: list
 
+    @property
+    def n_local(self) -> int:
+        return int(self.data[0].shape[1])
+
     def full(self, device=None) -> DIA:
         """The unsharded DIA, gathered on ``device`` (by default the first
         shard's)."""
         device = self.data[0].device if device is None else device
-        return DIA(data=torch.cat([d.to(device) for d in self.data], dim=1),
-                   shape=self.shape, offsets=self.offsets)
+        data = torch.cat([d.to(device) for d in self.data], dim=1)
+        return DIA(data=data[:, :self.shape[0]], shape=self.shape,
+                   offsets=self.offsets)

@@ -33,7 +33,12 @@ its slab:
 
 The products return a :class:`.sharded.ShardedVector` (the JAX functions
 return a row-sharded array) and take a plain tensor x too (the JAX
-functions take a replicated one).  Slabs are launched in shard order from
+functions take a replicated one).  :func:`spmm_sharded` is the multi-RHS
+form, on an (n, m) X and a :class:`.sharded.ShardedBlock`, with the same
+exchanges on (rows, m) pieces: **kernel A's multi-RHS form**
+(``kernels.spmv_dia.dia_spmm_kernel``) a DIA slab, **kernel D**
+(``kernels.spmv_well.well_spmm``) a WELL slab, and the plain ELL / BSR
+products.  Slabs are launched in shard order from
 one process; on one card four shards make four launches of a quarter of the
 rows each.
 """
@@ -48,6 +53,7 @@ import torch
 
 from sparse_linear_tpu_torch.dist.collectives import all_gather, ppermute
 from sparse_linear_tpu_torch.dist.sharded import (
+    ShardedBlock,
     ShardedDIA,
     ShardedVector,
     split,
@@ -59,8 +65,8 @@ from sparse_linear_tpu_torch.formats.structured import BSR, DIA, ELL
 __all__ = [
     "shard_dia_rows", "dia_spmv_sharded",
     "ShardedELL", "ShardedBSR", "shard_ell_rows", "shard_bsr_rows",
-    "shard_rows", "spmv_sharded", "ShardedWELL", "shard_well_rows",
-    "window_exchange_elements",
+    "shard_rows", "spmv_sharded", "spmm_sharded", "ShardedWELL",
+    "shard_well_rows", "window_exchange_elements",
 ]
 
 
@@ -72,11 +78,12 @@ def _on(a: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
 
-def _segments(x, mesh, axis: str, block: int, n: int) -> list:
-    """x as ``mesh[axis]`` segments of ``block`` entries on the shards'
-    devices: a ShardedVector already in that layout as it is, any other x
-    (a tensor, numpy, or a ShardedVector in another layout, gathered first)
-    split and copied to the shards."""
+def _segments(x, mesh, axis: str, block: int, n: int, ndim: int = 1) -> list:
+    """x as ``mesh[axis]`` segments of ``block`` rows on the shards'
+    devices: a ShardedVector (or ShardedBlock) already in that layout as it
+    is, any other x (a tensor, numpy, or one in another layout, gathered
+    first) split and copied to the shards.  ``ndim``: 1 for a vector, 2 for
+    an (n, m) block."""
     devices = mesh.shards(axis)
     if isinstance(x, ShardedVector):
         if (x.length == n and x.blocks == (block,) * len(devices)
@@ -85,34 +92,44 @@ def _segments(x, mesh, axis: str, block: int, n: int) -> list:
         x = x.full()
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x), device=devices[0])
-    if x.ndim != 1 or x.shape[0] != n:
-        raise ValueError(f"x of shape {tuple(x.shape)}, expected ({n},)")
+    if x.ndim != ndim or x.shape[0] != n:
+        raise ValueError(f"x of shape {tuple(x.shape)}, expected ({n}"
+                         f"{',' if ndim == 1 else ', m'})")
     return split(x, devices, block)
 
 
 # ---------------------------------------------------------------------- DIA
 
 
-def shard_dia_rows(dia: DIA, mesh, axis: str = "rows") -> ShardedDIA:
+def shard_dia_rows(dia: DIA, mesh, axis: str = "rows",
+                   pad: bool = False) -> ShardedDIA:
     """Place a DIA matrix with its data row-sharded over ``mesh[axis]``:
     each shard's slab, contiguous on its device, and its local operators
-    (see :class:`.sharded.ShardedDIA`), built once here."""
+    (see :class:`.sharded.ShardedDIA`), built once here.  Rows that the
+    shards do not divide raise, as the JAX package's do; with ``pad`` a
+    square operator is zero-padded to ceil(n / shards) rows a slab instead
+    (its padded rows and columns are zero, so the products of its first n
+    rows are the unpadded ones, bitwise)."""
     nr, nc = dia.shape
     n_dev = mesh.shape[axis]
-    if nr % n_dev:
+    if nr % n_dev and not (pad and nr == nc):
         raise ValueError(
             f"shard_dia_rows: shape {dia.shape} not divisible by mesh "
             f"axis size {n_dev}")
-    n_local = nr // n_dev
+    n_local = -(-nr // n_dev)
+    ncols = max(nc, n_local * n_dev)
     halo = max((abs(o) for o in dia.offsets), default=0)
-    data = [dia.data[:, d * n_local:(d + 1) * n_local].to(dev, copy=True)
+    full = dia.data
+    if n_local * n_dev > nr:
+        full = torch.nn.functional.pad(full, (0, n_local * n_dev - nr))
+    data = [full[:, d * n_local:(d + 1) * n_local].to(dev, copy=True)
             .contiguous() for d, dev in enumerate(mesh.shards(axis))]
     halo_slabs = None
     if nr == nc and halo <= n_local:
         halo_slabs = [DIA(data=p, shape=(n_local, n_local + 2 * halo),
                           offsets=tuple(o + halo for o in dia.offsets))
                       for p in data]
-    gather_slabs = [DIA(data=p, shape=(n_local, nc),
+    gather_slabs = [DIA(data=p, shape=(n_local, ncols),
                         offsets=tuple(o + d * n_local for o in dia.offsets))
                     for d, p in enumerate(data)]
     for slab in gather_slabs + (halo_slabs or []):
@@ -128,17 +145,20 @@ def dia_spmv_sharded(dia, x, mesh, axis: str = "rows",
     """y = A @ x with A row-sharded and x/y sharded over ``mesh[axis]``.
 
     Matrices with nrows and ncols divisible by the axis size (the halo
-    exchange: square ones).  ``dia`` is a :class:`ShardedDIA` from
+    exchange: square ones), or square ones sharded with
+    ``shard_dia_rows(pad=True)``.  ``dia`` is a :class:`ShardedDIA` from
     :func:`shard_dia_rows` (an unsharded DIA is sharded first, every call).
     The ring wrap-around at the global edge is harmless: a DIA stores 0 in
     ``data[d, i]`` wherever i + off falls outside the matrix
     (``csr_to_dia``, ``pad_dia``, the grid constructors), so the wrapped x
-    values are multiplied by zero."""
-    from sparse_linear_tpu_torch.kernels.spmv_dia import dia_spmv_kernel
+    values are multiplied by zero.  An (n, m) x, or a ShardedBlock, is the
+    multi-RHS product on kernel A's multi-RHS form (:func:`spmm_sharded`)."""
+    from sparse_linear_tpu_torch.kernels.spmv_dia import dia_spmm_kernel
 
     nr, nc = dia.shape
     n_dev = mesh.shape[axis]
-    if nr % n_dev or nc % n_dev:
+    padded = isinstance(dia, ShardedDIA) and dia.n_local * n_dev != nr
+    if (nr % n_dev or nc % n_dev) and not padded:
         raise ValueError(
             f"dia_spmv_sharded: shape {dia.shape} not divisible by mesh "
             f"axis size {n_dev}")
@@ -147,7 +167,8 @@ def dia_spmv_sharded(dia, x, mesh, axis: str = "rows",
     elif dia.axis != axis or dia.mesh.key != mesh.key:
         raise ValueError("dia_spmv_sharded: the matrix is sharded over "
                          "another mesh or axis")
-    n_local = nc // n_dev
+    # x's segments: the padded slabs' rows, else ncols / shards
+    n_local = dia.n_local if padded else nc // n_dev
     halo = dia.halo
     if exchange == "halo" and halo > n_local:
         exchange = "allgather"
@@ -156,9 +177,10 @@ def dia_spmv_sharded(dia, x, mesh, axis: str = "rows",
     if exchange == "halo" and nr != nc:
         raise ValueError("dia_spmv_sharded: the halo exchange needs a "
                          "square matrix")
-    xs = _segments(x, mesh, axis, n_local, nc)
+    block = isinstance(x, ShardedBlock) or getattr(x, "ndim", 1) == 2
+    xs = _segments(x, mesh, axis, n_local, nc, 2 if block else 1)
     if exchange == "allgather":
-        ys = [dia_spmv_kernel(slab, xf)
+        ys = [dia_spmm_kernel(slab, xf)
               for slab, xf in zip(dia.gather_slabs, all_gather(xs))]
     else:
         if halo == 0:
@@ -172,9 +194,9 @@ def dia_spmv_sharded(dia, x, mesh, axis: str = "rows",
             x_ext = [torch.cat([xs[(i - 1) % n_dev][-halo:].to(p.device),
                                 p, xs[(i + 1) % n_dev][:halo].to(p.device)])
                      for i, p in enumerate(xs)]
-        ys = [dia_spmv_kernel(slab, xe)
+        ys = [dia_spmm_kernel(slab, xe)
               for slab, xe in zip(dia.halo_slabs, x_ext)]
-    return ShardedVector(mesh, axis, ys, nr)
+    return (ShardedBlock if block else ShardedVector)(mesh, axis, ys, nr)
 
 
 # ------------------------------------------------------------------ generic
@@ -300,9 +322,10 @@ def _exchange_cols(segments, col_lo, plan) -> list:
     return out
 
 
-def _sharded_x(a, x, mesh):
-    """(x's segments of L = ceil(nc / shards) entries, each shard's x: its
-    column window under a plan, else the gathered x)."""
+def _sharded_x(a, x, mesh, ndim: int = 1):
+    """Each shard's x (``ndim`` 2: its (rows, m) block): its column window
+    under a plan, else the gathered x, from x's segments of
+    L = ceil(nc / shards) rows."""
     nr, nc = a.shape
     ndev = mesh.shape[a.axis]
     if a.mesh.key != mesh.key:
@@ -312,7 +335,7 @@ def _sharded_x(a, x, mesh):
     if length != nc:
         raise ValueError(f"spmv_sharded: dimension mismatch {a.shape} @ "
                          f"{(length,)}")
-    xs = _segments(x, mesh, a.axis, -(-nc // ndev), nc)
+    xs = _segments(x, mesh, a.axis, -(-nc // ndev), nc, ndim)
     if a.xplan is not None:
         return _exchange_cols(xs, a.col_lo, a.xplan)
     return all_gather(xs)
@@ -647,10 +670,46 @@ def spmv_sharded(a, x, mesh) -> ShardedVector:
     return ShardedVector(mesh, a.axis, _recut(ys, -(-nr // len(ys)), nr), nr)
 
 
+def spmm_sharded(a, x, mesh) -> ShardedBlock:
+    """Y = A @ X for a row-sharded matrix and an (n, m) X: the multi-RHS
+    form of :func:`spmv_sharded`, with the same exchanges on (rows, m)
+    pieces.  Y comes back as a :class:`.sharded.ShardedBlock` in the layout
+    of :meth:`.ShardedBlock.from_tensor` (for a padded DIA, its slabs').
+    X may be a plain (n, m) tensor or a ShardedBlock.  Each DIA slab runs
+    kernel A's multi-RHS form on its halo-extended (or gathered) block, each
+    WELL slab kernel D on its window (or the gathered block); ELL and BSR
+    run their plain products."""
+    from sparse_linear_tpu_torch.kernels.spmv import bsr_spmm
+    from sparse_linear_tpu_torch.kernels.spmv_well import well_spmm
+
+    if isinstance(a, (DIA, ShardedDIA)):
+        if not (isinstance(x, ShardedBlock) or getattr(x, "ndim", 0) == 2):
+            raise ValueError("spmm_sharded: X must be (n, m)")
+        return dia_spmv_sharded(a, x, mesh,
+                                a.axis if isinstance(a, ShardedDIA)
+                                else "rows")
+    if not isinstance(a, (ShardedELL, ShardedBSR, ShardedWELL)):
+        raise TypeError(f"spmm_sharded: unsupported type {type(a)}")
+    nr, nc = a.shape
+    xw = _sharded_x(a, x, mesh, ndim=2)
+    if isinstance(a, ShardedWELL):
+        ncl = a.xplan[5] if a.xplan is not None else nc
+        ys = [well_spmm(w, xd[:ncl]) for w, xd in zip(a.wells, xw)]
+    elif isinstance(a, ShardedELL):
+        ys = [(loc.vals[..., None] * xd[loc.cols.long()]).sum(dim=1)
+              for loc, xd in zip(a.local, xw)]
+    else:
+        ncl = a.local[0].shape[1]
+        cut = nc if a.xplan is None else ncl
+        ys = [bsr_spmm(loc, _padded(xd[:cut], ncl))
+              for loc, xd in zip(a.local, xw)]
+    return ShardedBlock(mesh, a.axis, _recut(ys, -(-nr // len(ys)), nr), nr)
+
+
 def _recut(ys: list, block: int, n: int) -> list:
-    """The slabs' outputs ``ys`` (rows_local entries each: WELL's 1024-row
+    """The slabs' outputs ``ys`` (rows_local rows each: WELL's 1024-row
     and BSR's whole-block slab heights) re-cut into pieces of ``block``
-    entries on the same devices, the first ``n`` rows kept and the rest
+    rows on the same devices, the first ``n`` rows kept and the rest
     zero.  Slabs already ``block`` long are returned as they are."""
     rows = ys[0].shape[0]
     if rows == block:
@@ -658,7 +717,8 @@ def _recut(ys: list, block: int, n: int) -> list:
     out = []
     for i, dev in enumerate(y.device for y in ys):
         lo, hi = min(i * block, n), min((i + 1) * block, n)
-        p = torch.zeros((block,), dtype=ys[0].dtype, device=dev)
+        p = torch.zeros((block,) + tuple(ys[0].shape[1:]), dtype=ys[0].dtype,
+                        device=dev)
         for d in range(lo // rows, -(-hi // rows)):
             s, e = max(lo, d * rows), min(hi, (d + 1) * rows)
             p[s - lo:e - lo] = ys[d][s - d * rows:e - d * rows].to(dev)
@@ -667,7 +727,8 @@ def _recut(ys: list, block: int, n: int) -> list:
 
 
 def _padded(x: torch.Tensor, n: int) -> torch.Tensor:
-    """x cut or zero-padded to n entries (the gathered x to whole blocks)."""
+    """x cut or zero-padded to n rows (the gathered x to whole blocks)."""
     if x.shape[0] >= n:
         return x[:n]
-    return torch.nn.functional.pad(x, (0, n - x.shape[0]))
+    return torch.nn.functional.pad(
+        x, (0, 0) * (x.ndim - 1) + (0, n - x.shape[0]))

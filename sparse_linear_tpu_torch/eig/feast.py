@@ -231,26 +231,25 @@ def _is_identity(mat) -> bool:
                 and bool((csr.data[:n] == 1).all()))
 
 
-def _contour_shards(where, mesh, params, contour_axis, rows_axis):
-    """The devices of ``mesh[contour_axis]``, one a group of contour nodes
-    (None without a mesh).  As in the JAX package, the node count must
-    divide by their number.  A mesh whose ``rows_axis`` has more than one
-    shard (the JAX package then also row-shards the subspace) raises
-    ``NotImplementedError``."""
+def _mesh_shards(where, mesh, params, contour_axis, rows_axis):
+    """(the devices of ``mesh[contour_axis]``, one a group of contour
+    nodes; the devices of ``mesh[rows_axis]`` when it has more than one
+    shard, over which the subspace is row-sharded, else None), or (None,
+    None) without a mesh.  As in the JAX package, the node count must
+    divide by the contour shards; the rows need not divide by the rows
+    shards."""
     if mesh is None:
-        return None
+        return None, None
+    rows = None
     if rows_axis in mesh.axis_names and mesh.shape[rows_axis] > 1:
-        raise NotImplementedError(
-            f"{where}: a mesh whose {rows_axis!r} axis has "
-            f"{mesh.shape[rows_axis]} shards (the row-sharded FEAST subspace) "
-            "is not ported yet (ROADMAP.md queue 1 item 11)")
+        rows = mesh.shards(rows_axis)
     shards = mesh.shards(contour_axis)
     ne = params.contour_points
     if ne % len(shards):
         raise ValueError(
             f"{where}: {ne} contour points are not divisible by the "
             f"{len(shards)} shards of mesh axis {contour_axis!r}")
-    return shards
+    return shards, rows
 
 
 def _check_args(where, interval, mat_a, mat_b, params):
@@ -296,14 +295,19 @@ def geigsh(m0, interval, mat_a, mat_b, params: FeastParams = FeastParams(),
     are split over ``mesh.shards(contour_axis)`` in contiguous groups (the
     JAX package shards the stacked node axis; the node count must divide
     by the shard count): each shard factors and solves its nodes on its
-    device, and the quadrature sums are psum'd onto the matrices' device
-    (``pipeline``'s "sharded" contour).  The subspace and the Rayleigh-Ritz
-    step stay on the matrices' device.  A mesh whose ``rows_axis`` has more
-    than one shard raises ``NotImplementedError``."""
+    device, and the quadrature sums are psum'd onto the subspace's device
+    (``pipeline``'s "sharded" contour).  Where ``mesh[rows_axis]`` has more
+    than one shard, the (n, m0) subspace blocks are also row-sharded over
+    ``mesh.shards(rows_axis)`` (the JAX package's ``P(rows_axis, None)``):
+    A and B run as row-sharded products, the Grams and norms as per-shard
+    sums psum'd in shard order, and a ``guess`` is split; else the subspace
+    and the Rayleigh-Ritz step stay on the matrices' device.  ``vectors``
+    and ``subspace`` come back whole on the matrices' device either way."""
     from sparse_linear_tpu_torch.eig import pipeline
 
     emin, emax, n = _check_args("geigsh", interval, mat_a, mat_b, params)
-    shards = _contour_shards("geigsh", mesh, params, contour_axis, rows_axis)
+    shards, rows = _mesh_shards("geigsh", mesh, params, contour_axis,
+                                rows_axis)
     if m0 < 1 or m0 > n:
         raise ValueError(f"geigsh: m0 must be in [1, {n}]")
     mat_a, mat_b = _device_mats(mat_a, mat_b, device)
@@ -311,19 +315,19 @@ def geigsh(m0, interval, mat_a, mat_b, params: FeastParams = FeastParams(),
         _check_hermitian(mat_a, "A")
         _check_hermitian(mat_b, "B")
     return pipeline.geigsh_pipeline(m0, (emin, emax), mat_a, mat_b, params,
-                                    guess=guess, shards=shards)
+                                    guess=guess, shards=shards, rows=rows)
 
 
 def eigsh(m0, interval, mat_a, params: FeastParams = FeastParams(),
-          guess=None, mesh=None, contour_axis: str = "cp", *,
-          device=None) -> EigResult:
+          guess=None, mesh=None, contour_axis: str = "cp",
+          rows_axis: str = "rows", *, device=None) -> EigResult:
     """Standard Hermitian interval problem: B = I (reference ``eigSH``,
-    Feast.hs:53-60,91-100)."""
+    Feast.hs:53-60,91-100); ``mesh`` as in :func:`geigsh`."""
     mat_a, _ = _device_mats(mat_a, None, device)
     b = eye(mat_a.shape[0], dtype=real_of(mat_a.dtype),
             device=mat_a.data.device)
     return geigsh(m0, interval, mat_a, b, params=params, guess=guess,
-                  mesh=mesh, contour_axis=contour_axis)
+                  mesh=mesh, contour_axis=contour_axis, rows_axis=rows_axis)
 
 
 def count_eigenvalues(interval, mat_a, mat_b=None, probes: int = 16,

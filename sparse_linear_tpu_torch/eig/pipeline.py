@@ -41,12 +41,20 @@ workaround, for real symmetric and complex Hermitian pencils alike:
    card's memory, and the quadrature sums are psum'd onto the subspace's
    device in shard order.  The pipeline (pattern, ``analyze``, operators)
    is shared by every mesh; a contour is cached per (nodes, mode, mesh
-   layout).
+   layout).  A mesh whose rows axis has more than one shard also
+   row-shards the subspace (the JAX package's ``P(rows_axis, None)``
+   blocks): every (n, m0) block is a ``dist.sharded.ShardedBlock``, A and
+   B are row-sharded once per rows layout (DIA slabs on kernel A's
+   multi-RHS form with the halo exchange, WELL slabs on kernel D with the
+   column-window exchange: ``dist.spmv.spmm_sharded``), the right-hand
+   side B y is gathered onto each contour shard, and the psum'd quadrature
+   sum comes back split into the row pieces.
 
 5. **Rayleigh-Ritz in plain f64/c128 matmuls** (``torch.matmul``): the
    whitening Gram q^H q, qw = q W, the reduced blocks qw^H (A qw) and
    qw^H (B qw) formed in that order (no symmetry of A is assumed), the
-   Ritz rotation and the residual norms, one m0-wide block per product.
+   Ritz rotation and the residual norms, one m0-wide block per product
+   (row-sharded: one a shard, the Grams and squared norms psum'd).
    Only the m0 x m0 Gram and blocks go to the host, for numpy's eighs.
 
 Left out as TPU workarounds: the real 2n embedding, ``dot64``, the
@@ -84,6 +92,9 @@ _FACTOR_CACHE_MAX = 2  # contours (factor sets) cached per pipeline
 _SOLVE_COPIES = 6
 # A factorization's peak above its stored factors, in its largest fronts.
 _FACTOR_TRANSIENT = 4
+# (rows, m0) pieces a rows shard holds at once in a row-sharded loop: q,
+# qw, x, a product, a residual term and the restart block.
+_ROW_COPIES = 6
 _BUDGET_SHARE = 0.9  # of the free (and cached) device memory
 # A rejected pair whose residual falls below this share of its match in the
 # previous loop is converging, and may be genuine.  Ghost residuals of an
@@ -114,6 +125,7 @@ def _drop(pipe) -> None:
     too."""
     pipe.contours.clear()
     pipe.sites.clear()
+    pipe.row_sets.clear()
 
 
 def _fingerprint(mat) -> tuple:
@@ -152,9 +164,10 @@ class StructuredOp:
     (ncols, 2m) block ``torch.view_as_real(X)`` inside the wrapper; a
     complex M runs the complex kernel."""
 
-    def __init__(self, route: str, fn=None):
+    def __init__(self, route: str, fn=None, mat=None):
         self.route = route
         self.fn = fn
+        self.mat = mat  # the DIA, or the CSR packed as WELL
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if self.route == "identity":
@@ -185,9 +198,29 @@ def _structured_op(mat) -> StructuredOp:
     except ValueError:
         dia = None
     if dia is not None:
-        return StructuredOp("dia", lambda x: dia_spmm_kernel(dia, x))
+        return StructuredOp("dia", lambda x: dia_spmm_kernel(dia, x), dia)
     well = csr_to_well(csr)
-    return StructuredOp("well", lambda x: well_spmm(well, x))
+    return StructuredOp("well", lambda x: well_spmm(well, x), csr)
+
+
+def _row_op(op: StructuredOp, mesh) -> StructuredOp:
+    """``op`` row-sharded over ``mesh["rows"]`` on its own route: DIA slabs
+    (zero-padded where the shards do not divide the rows) or WELL slabs,
+    taking and returning ShardedBlocks; the identity stays the identity."""
+    from sparse_linear_tpu_torch.dist.spmv import (
+        shard_dia_rows,
+        shard_well_rows,
+        spmm_sharded,
+    )
+
+    if op.route == "identity":
+        return op
+    if op.route == "dia":
+        sharded = shard_dia_rows(op.mat, mesh, "rows", pad=True)
+    else:
+        sharded = shard_well_rows(op.mat, mesh, "rows")
+    return StructuredOp(op.route, lambda x: spmm_sharded(sharded, x, mesh),
+                        sharded)
 
 
 def _budget(device, held: float = 0.0) -> float:
@@ -231,6 +264,14 @@ class _Pipeline:
         self.analyze_s = time.perf_counter() - t0
         self.contours: dict = {}
         self.sites: dict = {}
+        self.row_sets: dict = {}
+
+    def row_ops(self, mesh) -> tuple:
+        """(A, B) row-sharded over ``mesh["rows"]``, built once a layout."""
+        if mesh.key not in self.row_sets:
+            self.row_sets[mesh.key] = (_row_op(self.a_op, mesh),
+                                       _row_op(self.b_op, mesh))
+        return self.row_sets[mesh.key]
 
     def site(self, device) -> "_Pipeline | _Site":
         """What a shard on ``device`` factors and solves with: the
@@ -294,17 +335,33 @@ class _Pipeline:
         return "streaming", (f"per-node {need['per-node'] / 1e9:.2f} GB "
                              f"exceed the budget of {budget / 1e9:.2f} GB")
 
-    def card_needs(self, groups, m: int) -> dict:
+    def card_needs(self, groups, m: int, rows=()) -> dict:
         """{card: {mode: bytes}} of a sharded contour whose groups are
-        ``[(device, node count)]``."""
-        cards = dict.fromkeys(d for d, _ in groups)
-        return {c: self.needs([k for d, k in groups if d == c], m)
-                for c in cards}
+        ``[(device, node count)]``: each group's solves and its (n, m)
+        quadrature sum, held until the psum.  ``rows``: the row pieces of a
+        row-sharded subspace, ``[(device, rows)]``, each held
+        :data:`_ROW_COPIES` times, and the whole psum'd sum on the first
+        rows shard's card before it is split."""
+        item = torch.empty((), dtype=self.wdtype).element_size()
+        block = self.n * m * item
+        cards = dict.fromkeys([d for d, _ in groups] + [d for d, _ in rows])
+        out = {}
+        for c in cards:
+            ks = [k for d, k in groups if d == c]
+            need = self.needs(ks, m) if ks else dict.fromkeys(
+                ("batched", "per-node", "streaming"), 0)
+            extra = len(ks) * block + _ROW_COPIES * m * item * sum(
+                r for d, r in rows if d == c)
+            if rows and c == rows[0][0]:
+                extra += block
+            out[c] = {k: v + extra for k, v in need.items()}
+        return out
 
-    def plan_sharded(self, groups, m: int, batching: str, held: dict):
+    def plan_sharded(self, groups, m: int, batching: str, held: dict,
+                     rows=()):
         """(per-shard mode, why) of a sharded contour, as :meth:`plan` but
         against every card's budget at once."""
-        need = self.card_needs(groups, m)
+        need = self.card_needs(groups, m, rows)
         if batching == "vmap":
             return "batched", "forced by contour_batching='vmap'"
         if batching == "loop":
@@ -328,11 +385,13 @@ class _Pipeline:
         return api.factor(mat, self.symbolic)
 
     def contour(self, z, sigma, m: int, batching: str,
-                shards=None) -> "_Contour":
+                shards=None, rows=()) -> "_Contour":
         """The contour's factors in the planned mode, cached per (nodes,
         mode, shards); cached sets of other contours are dropped first when
         the plan does not fit beside them.  ``shards``: the devices of a
-        mesh's contour axis, one group of contiguous nodes each."""
+        mesh's contour axis, one group of contiguous nodes each; ``rows``:
+        ``[(device, rows)]`` of a row-sharded subspace, for the byte
+        plan."""
         zkey = hash(np.asarray(z).tobytes())
         fac = self.set_bytes()[0]
         held: dict = {}
@@ -350,11 +409,11 @@ class _Pipeline:
             groups = list(zip(shards, np.array_split(np.arange(len(z)),
                                                      len(shards))))
             sizes = [(d, len(ix)) for d, ix in groups]
-            sub, why = self.plan_sharded(sizes, m, batching, held)
+            sub, why = self.plan_sharded(sizes, m, batching, held, rows)
             mode = "sharded"
             why = f"{sub} on each of {len(shards)} shards: {why}"
             key = (zkey, mode, sub, tuple(str(d) for d in shards))
-            need = self.card_needs(sizes, m)
+            need = self.card_needs(sizes, m, rows)
             fits = all(need[d][sub] <= _budget(d) for d in need)
         if key in self.contours:
             return self.contours[key]
@@ -448,24 +507,44 @@ class _Contour:
         else:
             q.add_(s, alpha=complex(w))
 
-    def apply(self, y, refine_n: int) -> torch.Tensor:
+    def apply(self, y, refine_n: int, b_op=None):
         """q = sum_k sigma_k S_k + conj(sigma_k) T_k with S_k and T_k the
         solutions of (z_k B - A) S = B y and (z_k B - A)^H T = B y; for a
         real pencil T_k = conj(S_k) and q = 2 Re sum_k sigma_k S_k.  Under
         "sharded" each shard sums its own nodes on its device (the
         right-hand side goes to it once; it is only read there) and the
-        sums are psum'd onto y's device in shard order."""
-        from sparse_linear_tpu_torch.dist.collectives import psum
+        sums are psum'd onto y's device in shard order.  A row-sharded y (a
+        ShardedBlock, with ``b_op`` the row-sharded B) has B y gathered
+        onto each contour shard's device, once a device, and q comes back
+        split into y's row pieces."""
+        from sparse_linear_tpu_torch.dist.collectives import gather, psum
+        from sparse_linear_tpu_torch.dist.sharded import ShardedBlock, split
 
         pipe = self.pipe
-        rhs = pipe.b_op(y).to(pipe.cdtype)
+        by = (b_op or pipe.b_op)(y)
+        rows = isinstance(by, ShardedBlock)
+        if rows:
+            shape, dest = (by.length, by.width), by.device
+        else:
+            by = by.to(pipe.cdtype)
+            shape, dest = tuple(y.shape), y.device
+        rhs: dict = {}
         sums = []
         for site, idx, gmode, factors in self.groups:
-            q = torch.zeros(y.shape, dtype=pipe.wdtype, device=site.device)
-            self._group_sum(q, rhs.to(site.device), site, idx, gmode,
-                            factors, refine_n)
+            if site.device not in rhs:
+                rhs[site.device] = (
+                    gather(by.pieces, site.device)[:by.length].to(pipe.cdtype)
+                    if rows else by.to(site.device))
+            q = torch.zeros(shape, dtype=pipe.wdtype, device=site.device)
+            self._group_sum(q, rhs[site.device], site, idx, gmode, factors,
+                            refine_n)
             sums.append(q)
-        return sums[0] if len(sums) == 1 else psum(sums, y.device)
+        del rhs
+        q = sums[0] if len(sums) == 1 else psum(sums, dest)
+        if not rows:
+            return q
+        return ShardedBlock(by.mesh, by.axis,
+                            split(q, by.devices, by.blocks[0]), by.length)
 
     def _group_sum(self, q, rhs, site, idx, gmode, factors, refine_n):
         """Add one group's quadrature terms to q, on the group's device."""
@@ -557,13 +636,70 @@ def _ghost_converged(prev, cur, tol: float, lam_scale: float) -> bool:
     return bool(np.all(cur.rejected >= _GHOST_PROGRESS * prev.rejected[near]))
 
 
+def _gram(p, q) -> np.ndarray:
+    """p^H q on the host: one product, or on row-sharded blocks one a shard
+    psum'd in shard order.  The seconds from the end of the work queued
+    before it to the host copy add up in ``_gram.seconds``."""
+    from sparse_linear_tpu_torch.dist.sharded import ShardedBlock
+
+    sharded = isinstance(p, ShardedBlock)
+    _sync_all(p.devices if sharded else [p.device])
+    t0 = time.perf_counter()
+    out = _host(p.gram(q) if sharded else p.mH @ q)
+    _gram.seconds += time.perf_counter() - t0
+    return out
+
+
+_gram.seconds = 0.0
+
+
+def _times(q, mat: np.ndarray):
+    """q @ mat for a small host matrix, on q's device(s)."""
+    from sparse_linear_tpu_torch.dist.sharded import ShardedBlock
+
+    if isinstance(q, ShardedBlock):
+        return q @ mat
+    return q @ torch.as_tensor(mat, dtype=q.dtype, device=q.device)
+
+
+def _col_norms(x) -> torch.Tensor:
+    from sparse_linear_tpu_torch.dist.sharded import ShardedBlock
+
+    if isinstance(x, ShardedBlock):
+        return x.col_norms()
+    return torch.linalg.vector_norm(x, dim=0)
+
+
+def _restart(x, fill, m0: int):
+    """The warm-restart block: x's columns, then ``fill`` (the whole
+    (n, m0 - m) random refill, or None), row-sharded like x when x is."""
+    from sparse_linear_tpu_torch.dist.sharded import ShardedBlock, split
+
+    sharded = isinstance(x, ShardedBlock)
+    pieces, fills = (x.pieces, [None] * len(x.pieces)) if sharded else (
+        [x], [fill])
+    if sharded and fill is not None:
+        fills = split(fill, x.devices, x.blocks[0])
+    out = []
+    for p, f in zip(pieces, fills):
+        y = torch.empty((p.shape[0], m0), dtype=p.dtype, device=p.device)
+        y[:, :p.shape[1]] = p
+        if f is not None:
+            y[:, p.shape[1]:] = f
+        out.append(y)
+    return x._like(out) if sharded else out[0]
+
+
 def _reduced_blocks(a_op, b_op, qw):
     """The Rayleigh-Ritz blocks qw^H (A qw) and qw^H (B qw) on the host,
     each product formed in that order: right for any A, symmetric or not
     (the fault of ``real_pipeline.py:357-371`` is not copied)."""
-    aq = _host(qw.mH @ a_op(qw))
-    bq = _host(qw.mH @ b_op(qw))
-    return aq, bq
+    return _gram(qw, a_op(qw)), _gram(qw, b_op(qw))
+
+
+def _sync_all(devices) -> None:
+    for d in dict.fromkeys(devices):
+        _sync(d)
 
 
 def _initial_subspace(guess, n, m0, pipe, seed):
@@ -580,11 +716,17 @@ def _initial_subspace(guess, n, m0, pipe, seed):
 
 
 def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
-                    shards=None):
+                    shards=None, rows=None):
     """The FEAST solver loop over the cached pipeline (mirrors the RCI event
     sequence, Feast.hs:220-232, with the loop owned natively).  Returns an
     ``EigResult``; fills :data:`last_run`.  ``shards``: the devices of a
-    mesh's contour axis (the "sharded" contour), or None."""
+    mesh's contour axis (the "sharded" contour), or None; ``rows``: the
+    devices of its rows axis when it has more than one shard (the
+    row-sharded subspace), or None.  The random blocks are drawn whole on
+    the pipeline's device, as without ``rows``, and then split, so both
+    runs start from the same subspace."""
+    from sparse_linear_tpu_torch.dist.mesh import Mesh
+    from sparse_linear_tpu_torch.dist.sharded import ShardedBlock
     from sparse_linear_tpu_torch.eig.feast import (
         INFO_NO_EIGENVALUES, INFO_NOT_CONVERGED, INFO_OK,
         INFO_SUBSPACE_TOO_SMALL, EigResult, _contour, _reduced_geig,
@@ -595,13 +737,22 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
     n = mat_a.shape[0]
     pipe, fresh = _get_pipeline(mat_a, mat_b, params.backend, params.dims)
     dev = pipe.device
+    a_op, b_op = pipe.a_op, pipe.b_op
+    row_mesh, row_sizes = None, ()
+    if rows:
+        row_mesh = Mesh(list(rows), ("rows",))
+        a_op, b_op = pipe.row_ops(row_mesh)
+        row_sizes = [(d, -(-n // len(rows))) for d in row_mesh.shards("rows")]
     z, sigma = _contour(emin, emax, params.contour_points,
                         kind=params.quadrature)
-    contour = pipe.contour(z, sigma, m0, params.contour_batching, shards)
+    contour = pipe.contour(z, sigma, m0, params.contour_batching, shards,
+                           row_sizes)
     refine_n = _refine_default(params, pipe)
     run = {"mode": contour.mode, "why": contour.why,
            "shard_mode": contour.shard_mode,
            "shards": [str(g[0].device) for g in contour.groups],
+           "rows_shards": [str(d) for d, _ in row_sizes],
+           "rows_local": row_sizes[0][1] if row_sizes else n,
            "analyze_s": pipe.analyze_s if fresh else 0.0,
            "factor_s": contour.factor_s, "loops": [],
            "needs_gb": {k: v / 1e9 for k, v in pipe.needs(len(z), m0).items()},
@@ -613,6 +764,10 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
         print(f"feast(torch) contour {contour.mode}: {contour.why}")
 
     y = _initial_subspace(guess, n, m0, pipe, params.seed)
+    sub_devices = [dev]
+    if row_mesh is not None:
+        y = ShardedBlock.from_tensor(y, row_mesh, "rows")
+        sub_devices = list(dict.fromkeys([dev] + y.devices))
     rdt = real_of(pipe.wdtype)
     lam_scale = max(abs(emin), abs(emax), 1.0)
     tiny = np.finfo(np.float64).tiny
@@ -623,54 +778,57 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
     sel = np.zeros((0,), dtype=np.int64)
     loops_done = stalls = 0
     prev = None
-    b_ident = pipe.b_op.route == "identity"
+    b_ident = b_op.route == "identity"
 
     for loop in range(params.max_loops):
         loops_done = loop + 1
+        gram0 = _gram.seconds
         t0 = time.perf_counter()
         # ---- contour filter (ijob=10/11); loop 0 is filter-limited, so
         # refinement starts with the second loop (real_pipeline.py:670)
-        q = contour.apply(y, 0 if loop == 0 else refine_n)
+        q = contour.apply(y, 0 if loop == 0 else refine_n, b_op)
         y = None
-        _sync(dev)
+        _sync_all(sub_devices)
         t1 = time.perf_counter()
         # ---- whitening and reduced blocks: plain matmuls on the card,
         # the m0 x m0 eighs on the host
-        g = _host(q.mH @ q)
+        g = _gram(q, q)
         t2 = time.perf_counter()
         wmat = _whiten_mat(g)
         t3 = time.perf_counter()
-        qw = q @ torch.as_tensor(wmat, dtype=q.dtype, device=dev)
+        qw = _times(q, wmat)
         del q
-        aq, bq = _reduced_blocks(pipe.a_op, pipe.b_op, qw)
+        aq, bq = _reduced_blocks(a_op, b_op, qw)
         t4 = time.perf_counter()
         lam, coeff = _reduced_geig(aq, bq)
         t5 = time.perf_counter()
         m_kept = int(coeff.shape[1])
-        x = qw @ torch.as_tensor(coeff, dtype=qw.dtype, device=dev)
+        x = _times(qw, coeff)
         del qw
         lam_k = np.real(lam)[:m_kept]
-        bx = x if b_ident else pipe.b_op(x)
+        bx = x if b_ident else b_op(x)
         lam_t = torch.as_tensor(lam_k, dtype=rdt, device=dev)
-        rn = torch.linalg.vector_norm(pipe.a_op(x) - bx * lam_t[None, :],
-                                      dim=0)
+        rn = _col_norms(a_op(x) - bx * lam_t[None, :])
         del bx
-        norms = _host(torch.stack([rn, torch.linalg.vector_norm(x, dim=0)]))
+        norms = _host(torch.stack([rn, _col_norms(x)]))
         # ---- warm-restart subspace: kept Ritz columns + random refill
-        y = torch.empty((n, m0), dtype=pipe.wdtype, device=dev)
-        y[:, :m_kept] = x
-        del x
+        fill = None
         if m_kept < m0:
             gen = torch.Generator(device=dev).manual_seed(
                 params.seed + loop + 1)
-            y[:, m_kept:] = torch.randn((n, m0 - m_kept), dtype=pipe.wdtype,
-                                        device=dev, generator=gen)
-        t6 = time.perf_counter()
+            fill = torch.randn((n, m0 - m_kept), dtype=pipe.wdtype,
+                               device=dev, generator=gen)
+        y = _restart(x, fill, m0)
+        del x, fill
         res_k = norms[0] / np.maximum(norms[1], tiny) / lam_scale
+        _sync_all(sub_devices)
+        t6 = time.perf_counter()
+        gram_s = _gram.seconds - gram0
+        products_s = (t2 - t1) + (t4 - t3) + (t6 - t5) - gram_s
         split = {"solve_s": t1 - t0 - (contour.factor_s - streamed_s),
                  "factor_s": contour.factor_s - streamed_s,
-                 "rr_s": (t2 - t1) + (t4 - t3) + (t6 - t5),
-                 "eigh_s": (t3 - t2) + (t5 - t4)}
+                 "rr_s": products_s + gram_s, "products_s": products_s,
+                 "gram_s": gram_s, "eigh_s": (t3 - t2) + (t5 - t4)}
         streamed_s = contour.factor_s
 
         inside_k = (lam_k >= emin) & (lam_k <= emax)
@@ -727,6 +885,8 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
         # hold the invariant subspace (Feast.hs:252-257)
         info = INFO_SUBSPACE_TOO_SMALL
     order = np.argsort(lam_np)
+    if isinstance(y, ShardedBlock):
+        y = y.full(dev)
     vectors = y[:, torch.as_tensor(sel[order], device=dev)]
     return EigResult(values=lam_np[order], vectors=vectors,
                      n_found=len(lam_np), iterations=loops_done,

@@ -684,7 +684,16 @@ def _factor_run(symbolic: MFSymbolic, dm, a_data, kind: str,
 
             def joined(i, shape):
                 ts = [o[i].reshape((ne, o[0]) + shape) for o in out]
-                return ts[0] if len(ts) == 1 else gather(ts, device, dim=1)
+                if len(ts) == 1:
+                    return ts[0]
+                # gathered in the unsharded layout (torch.linalg's
+                # column-major blocks), so that a solve runs the same BLAS
+                # paths on them, bitwise
+                order = sorted(range(ts[0].ndim),
+                               key=lambda d: -ts[0].stride(d))
+                back = [order.index(d) for d in range(len(order))]
+                return gather([t.permute(order) for t in ts], device,
+                              dim=order.index(1)).permute(back)
 
             for o in out:
                 n_flag += o[6].view(ne, o[0]).sum(dim=1).to(device)
@@ -694,6 +703,12 @@ def _factor_run(symbolic: MFSymbolic, dm, a_data, kind: str,
                 "g21": joined(3, (us_c, ns_c)),
                 "g12": joined(4, (ns_c, us_c)),
             }
+            if kind == "cholesky" and len(out) > 1:
+                # the unsharded views: the identity permutation expanded
+                # and g21 = g12^H
+                blk = blocks[bidx]
+                blk["perm"] = blk["perm"][:1, :1].expand(ne, nb, ns_c)
+                blk["g21"] = blk["g12"].mH
             if pending.get(bidx):
                 updates[bidx] = [o[5].view(ne, o[0], us_c, us_c)
                                  for o in out]

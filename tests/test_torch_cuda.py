@@ -1077,3 +1077,74 @@ def test_sharded_well_on_four_shards_is_kernel_c(dev, dtype, exchange):
         w = csr_to_well(mat)
         assert _rel(y.full(), well_spmv_plain(w, x)) <= 1e-12
         assert _rel(y.full(), well_spmv(w, x)) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_spmm_sharded_on_two_shards_is_the_unsharded_kernel(dev, dtype):
+    """The multi-RHS form of the row-sharded product at FEAST's m = 80 on
+    two shards of a card mesh: kernel A's multi-RHS form a DIA slab
+    (halo, and zero-padded slabs where the shards do not divide the rows),
+    bitwise the unsharded kernel, and kernel D a WELL slab (window and
+    all-gather), within 1e-12 of the unsharded kernel D; one launch a
+    slab."""
+    from sparse_linear_tpu_torch.dist import ShardedBlock, card_mesh
+    from sparse_linear_tpu_torch.dist.spmv import (
+        shard_dia_rows,
+        shard_well_rows,
+        spmm_sharded,
+    )
+    from sparse_linear_tpu_torch.formats.structured import csr_to_dia
+
+    mesh = card_mesh(2)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for g in (128, 127):
+        csr = poisson_2d(g, dtype=dtype, device=dev)
+        x = torch.randn((g * g, 80), dtype=dtype, device=dev, generator=gen)
+        dia = csr_to_dia(csr)
+        sh = shard_dia_rows(dia, mesh, pad=True)
+        before = dia_spmm_kernel.launches
+        y = spmm_sharded(sh, ShardedBlock.from_tensor(x, mesh), mesh)
+        assert dia_spmm_kernel.launches - before == 2
+        assert all(p.device.type == "cuda" for p in y.pieces)
+        assert torch.equal(y.full(), dia_spmm_kernel(dia, x))
+        assert _rel(y.full(), dia_spmm(dia, x)) <= RTOL[dtype]
+        for mat, ex in ((csr, "window"),
+                        (_permuted_poisson(g, dtype, dev), "allgather")):
+            sw = shard_well_rows(mat, mesh, exchange=ex)
+            before = well_spmm.launches
+            y = spmm_sharded(sw, x, mesh)
+            assert well_spmm.launches - before == 2
+            assert _rel(y.full(), well_spmm(csr_to_well(mat), x)) <= 1e-12
+
+
+def test_row_sharded_feast_on_card(dev):
+    """FEAST on a (2, 2) ("cp", "rows") card mesh at 24**2, the DIA route
+    and the permuted operator's WELL route: the unsharded run's loops and
+    eigenvalues within 1e-12, the analytic spectrum within 1e-10, the
+    row-sharded products launched, vectors on the card."""
+    from sparse_linear_tpu_torch.dist import card_mesh
+    from sparse_linear_tpu_torch.eig import pipeline
+    from sparse_linear_tpu_torch.eig.feast import INFO_OK, FeastParams, eigsh
+
+    g = 24
+    lam1 = 4 * np.sin(np.arange(1, g + 1) * np.pi / (2 * (g + 1))) ** 2
+    lam = np.sort((lam1[:, None] + lam1[None, :]).ravel())
+    emax = float((lam[19] + lam[20]) / 2)
+    mesh = card_mesh((2, 2), ("cp", "rows"))
+    for a, p, kern in (
+            (poisson_2d(g, dtype=torch.float64, device=dev),
+             FeastParams(tol=1e-10, backend="multifrontal", dims=(g, g)),
+             dia_spmm_kernel),
+            (_permuted_poisson(g, torch.float64, dev),
+             FeastParams(tol=1e-10, backend="multifrontal"), well_spmm)):
+        single = eigsh(32, (0.0, emax), a, p)
+        before = kern.launches
+        res = eigsh(32, (0.0, emax), a, p, mesh=mesh)
+        run = pipeline.last_run
+        assert kern.launches > before
+        assert run["mode"] == "sharded" and len(run["rows_shards"]) == 2
+        assert res.info == INFO_OK and res.iterations == single.iterations
+        np.testing.assert_allclose(res.values, single.values, rtol=0,
+                                   atol=1e-12)
+        np.testing.assert_allclose(res.values, lam[:20], rtol=1e-10)
+        assert res.vectors.device.type == "cuda"

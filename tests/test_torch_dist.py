@@ -38,6 +38,7 @@ from sparse_linear_tpu.utils import grids as jgrids  # noqa: E402
 import sparse_linear_tpu_torch as st  # noqa: E402
 from sparse_linear_tpu_torch.dist import (  # noqa: E402
     Mesh,
+    ShardedBlock,
     ShardedDIA,
     ShardedVector,
     card_mesh,
@@ -113,6 +114,22 @@ def test_mesh_layout_and_card_mesh():
         Mesh(["cpu"] * 2, ("a", "b"))
     cm = card_mesh((2, 3), ("a", "b"), device="cpu")
     assert cm.shape == {"a": 2, "b": 3}
+
+
+def test_cp_rows_card_mesh_leaves_a_card_empty(monkeypatch):
+    """On four cards ``card_mesh((2, 2), ("cp", "rows"))`` puts shard i on
+    card i; ``Mesh.shards`` takes index 0 of the other axis (where the JAX
+    package replicates), so the contour runs on cards 0 and 2, the row
+    pieces live on cards 0 and 1, and card 3 holds no work of a row-sharded
+    FEAST run."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    mesh = card_mesh((2, 2), ("cp", "rows"))
+    cp = [d.index for d in mesh.shards("cp")]
+    rows = [d.index for d in mesh.shards("rows")]
+    assert cp == [0, 2] and rows == [0, 1]
+    assert 3 not in cp + rows
+    assert mesh.layout() == ("4 shards on 4 cards: cuda:0 x1, cuda:1 x1, "
+                             "cuda:2 x1, cuda:3 x1")
 
 
 def test_without_a_card_the_mesh_and_dry_run_raise():
@@ -274,6 +291,97 @@ def test_sharded_cg_matches_unsharded(tmesh):
     true = torch.linalg.vector_norm(b - a @ res.x.full()) \
         / torch.linalg.vector_norm(b)
     assert float(true) <= 1e-10
+
+
+@pytest.mark.parametrize("g,nshards", [(16, 8), (12, 5)])
+@pytest.mark.parametrize("exchange", ["halo", "allgather"])
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_spmm_sharded_dia_is_the_unsharded_kernel(g, nshards, exchange,
+                                                   dtype):
+    """The multi-RHS form on DIA slabs (kernel A's multi-RHS form, its
+    plain version here): halo and all-gather, 144 rows over 5 shards on
+    zero-padded slabs (``shard_dia_rows(pad=True)``), a ShardedBlock or a
+    plain (n, m) X: bitwise the unsharded product."""
+    from sparse_linear_tpu_torch.kernels.spmv_dia import dia_spmm_kernel
+
+    rng = np.random.default_rng(11)
+    a = to_port(_jax_dia(g, dtype, rng))
+    n = g * g
+    x = torch.as_tensor(_vec(rng, n * 7, dtype).reshape(n, 7))
+    mesh = card_mesh(nshards, ("rows",), device="cpu")
+    sh = tds.shard_dia_rows(a, mesh, pad=True)
+    assert sh.n_local == -(-n // nshards)
+    ref = dia_spmm_kernel(a, x)
+    for xin in (x, ShardedBlock.from_tensor(x, mesh)):
+        y = tds.spmm_sharded(sh, xin, mesh) if exchange == "halo" else \
+            tds.dia_spmv_sharded(sh, xin, mesh, exchange="allgather")
+        assert isinstance(y, ShardedBlock) and y.length == n
+        assert y.blocks == (sh.n_local,) * nshards
+        assert torch.equal(y.full(), ref)
+        assert not y.pieces[-1][n - (nshards - 1) * sh.n_local:].any()
+    if n % nshards:
+        with pytest.raises(ValueError, match="not divisible"):
+            tds.shard_dia_rows(a, mesh)
+    with pytest.raises(ValueError, match=r"\(n, m\)"):
+        tds.spmm_sharded(sh, ShardedVector.from_tensor(x[:, 0], mesh), mesh)
+
+
+def test_sharded_block_reductions():
+    """``ShardedBlock``'s Gram product, product with a small matrix and
+    column norms against the whole block's (1e-12), rows past the length
+    zero; ``split`` cuts an (n, m) tensor."""
+    rng = np.random.default_rng(12)
+    mesh = card_mesh(3, ("rows",), device="cpu")
+    p = torch.as_tensor(rng.standard_normal((10, 4))
+                        + 1j * rng.standard_normal((10, 4)))
+    q = torch.as_tensor(rng.standard_normal((10, 4))).to(p.dtype)
+    w = rng.standard_normal((4, 2))
+    ps, qs = ShardedBlock.from_tensor(p, mesh), ShardedBlock.from_tensor(q,
+                                                                         mesh)
+    assert ps.blocks == (4, 4, 4) and ps.width == 4 and ps.length == 10
+    assert not ps.pieces[-1][2:].any()
+    torch.testing.assert_close(ps.gram(qs), p.mH @ q, rtol=0, atol=1e-12)
+    pw = ps @ w
+    assert isinstance(pw, ShardedBlock) and pw.width == 2
+    torch.testing.assert_close(pw.full(), p @ torch.as_tensor(w).to(p.dtype),
+                               rtol=0, atol=1e-12)
+    torch.testing.assert_close(ps.col_norms(),
+                               torch.linalg.vector_norm(p, dim=0), rtol=0,
+                               atol=1e-12)
+    d = ps - qs * torch.arange(4.0)[None, :]
+    torch.testing.assert_close(d.full(), p - q * torch.arange(4.0)[None, :],
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="layouts differ"):
+        ps.gram(ShardedBlock.from_tensor(q, mesh, block=5))
+
+
+@pytest.mark.parametrize("fmt", ["well", "ell", "bsr"])
+@pytest.mark.parametrize("exchange", ["window", "allgather"])
+def test_spmm_sharded_unstructured(fmt, exchange):
+    """The multi-RHS form on WELL slabs (kernel D, its plain version here),
+    ELL and BSR slabs (plain products), with the window exchange and the
+    all-gather, on the 64**2 operator over 4 shards (1024-row WELL slabs,
+    so the window plan is the JAX package's): within 1e-12 of the
+    unsharded WELL product and of the dense one."""
+    from sparse_linear_tpu_torch.formats.well import csr_to_well
+    from sparse_linear_tpu_torch.kernels.spmv_well import well_spmm
+    from sparse_linear_tpu_torch.utils.grids import poisson_2d
+
+    g = 64
+    a = poisson_2d(g, dtype=torch.float64, device="cpu")
+    x = torch.as_tensor(np.random.default_rng(13).standard_normal(
+        (g * g, 5)))
+    mesh = card_mesh(4, ("rows",), device="cpu")
+    kw = {"block_shape": (8, 16)} if fmt == "bsr" else {}
+    sh = tds.shard_rows(a, mesh, fmt=fmt, exchange=exchange, **kw)
+    assert (sh.xplan is not None) == (exchange == "window")
+    y = tds.spmm_sharded(sh, ShardedBlock.from_tensor(x, mesh), mesh)
+    assert isinstance(y, ShardedBlock) and y.blocks == (1024,) * 4
+    ref = well_spmm(csr_to_well(a), x)
+    np.testing.assert_allclose(np_of(y.full()), np_of(ref), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(np_of(y.full()), np_of(a.todense() @ x),
+                               rtol=0, atol=1e-12)
 
 
 # ------------------------------------------------------- ELL / BSR / WELL
@@ -579,6 +687,37 @@ def test_front_sharded_blocks_are_the_unsharded_ones(g, nshards, kind):
             assert torch.equal(sh.blocks[k][name], t), (k, name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("kind", ["cholesky", "lu"])
+def test_front_sharded_solve_is_the_unsharded_one(kind, dtype):
+    """``poisson_2d(20)`` with its fronts over 4 CPU shards: every split
+    bucket's blocks come back in the unsharded layout (strides and conj
+    views: torch.linalg's column-major blocks, Cholesky's g21 = g12^H and
+    its expanded identity permutation), so a solve is ``torch.equal`` to
+    the unsharded solve."""
+    from sparse_linear_tpu_torch.utils.grids import poisson_2d
+
+    g = 20
+    a = poisson_2d(g, dtype=dtype, device="cpu")
+    sym = tmf.analyze(a, dims=(g, g))
+    ref = tmf.factor(a, sym, kind=kind)
+    sh = tmf.factor(a, sym, kind=kind, mesh=Mesh(["cpu"] * 4, ("x",)))
+    parts = tmf._mesh_parts(sym, tmf._device_maps(sym, a.data.device),
+                            [torch.device("cpu")] * 4)
+    assert any(p is not None for p in parts.values())
+    for k in ref.blocks:
+        for name, t in ref.blocks[k].items():
+            u = sh.blocks[k][name]
+            assert torch.equal(u, t), (k, name)
+            assert u.stride() == t.stride(), (k, name)
+            assert u.is_conj() == t.is_conj(), (k, name)
+    b = torch.as_tensor(np.random.default_rng(14).standard_normal(
+        (g * g, 3))).to(dtype)
+    for trans in (False, True):
+        assert torch.equal(tmf.solve(sh, b, trans), tmf.solve(ref, b, trans))
+    assert torch.equal(tmf.solve(sh, b[:, 0]), tmf.solve(ref, b[:, 0]))
+
+
 # ------------------------------------------------------------------ FEAST
 
 
@@ -682,21 +821,162 @@ def test_sharded_contour_modes_agree(cp_mesh, batching, monkeypatch):
 
 
 def test_distributed_feast_2d_mesh():
-    """``test_dist.py::test_distributed_feast_2d_mesh``: a ("cp", "rows")
-    mesh whose rows axis has 2 shards asks for the row-sharded subspace,
-    not ported yet: it raises naming its ROADMAP item (a rows axis of one
-    shard runs)."""
+    """``test_dist.py::test_distributed_feast_2d_mesh``: on a (4, 2)
+    ("cp", "rows") mesh the contour nodes go over "cp" and the subspace is
+    row-sharded over "rows": eigenvalues within 1e-12 of the unsharded
+    port and of the JAX package on its (4, 2) mesh of virtual devices, the
+    unsharded loop count, epsout < 1e-10 (a rows axis of one shard runs
+    unsharded rows)."""
     from sparse_linear_tpu_torch.utils.grids import laplacian_1d
 
+    p = dict(tol=1e-12)
+    j = jfeast.eigsh(6, (0.2, 1.2), jgrids.laplacian_1d(16, dtype=np.float64),
+                     jfeast.FeastParams(**p),
+                     mesh=JMesh(np.array(jax.devices()[:ND]).reshape(4, 2),
+                                ("cp", "rows")))
     a = laplacian_1d(16, dtype=torch.float64, device="cpu")
+    single = tfeast.eigsh(6, (0.2, 1.2), a, tfeast.FeastParams(**p))
     mesh2 = Mesh(np.array(["cpu"] * 8).reshape(4, 2), ("cp", "rows"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tfeast.eigsh(6, (0.2, 1.2), a, tfeast.FeastParams(tol=1e-12),
-                     mesh=mesh2)
-    res = tfeast.eigsh(6, (0.2, 1.2), a, tfeast.FeastParams(tol=1e-12),
+    res = tfeast.eigsh(6, (0.2, 1.2), a, tfeast.FeastParams(**p), mesh=mesh2)
+    run = pipeline.last_run
+    assert run["mode"] == "sharded" and len(run["shards"]) == 4
+    assert len(run["rows_shards"]) == 2 and run["rows_local"] == 8
+    assert res.n_found > 0 and res.epsout < 1e-10
+    assert res.n_found == single.n_found == j.n_found
+    assert res.iterations == single.iterations
+    np.testing.assert_allclose(res.values, single.values, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(res.values, np.sort(np.asarray(j.values)),
+                               rtol=0, atol=1e-12)
+    assert res.vectors.shape == single.vectors.shape
+    assert res.subspace.shape == (16, 6)
+    res = tfeast.eigsh(6, (0.2, 1.2), a, tfeast.FeastParams(**p),
                        mesh=Mesh(np.array(["cpu"] * 4).reshape(4, 1),
                                  ("cp", "rows")))
+    assert pipeline.last_run["rows_shards"] == []
     assert res.n_found > 0 and res.epsout < 1e-10
+
+
+def _permuted_port(g, seed=7):
+    """The port's g**2 five-point operator with rows and columns relabelled
+    by one seeded permutation (no band: the WELL route)."""
+    from sparse_linear_tpu_torch.utils.grids import poisson_2d
+
+    coo = poisson_2d(g, dtype=torch.float64, device="cpu").tocoo()
+    perm = np.random.default_rng(seed).permutation(g * g)
+    return st.from_triples((g * g, g * g), perm[np_of(coo.row)],
+                           perm[np_of(coo.col)], np_of(coo.data),
+                           device="cpu").tocsr()
+
+
+def _gauge_port(g, theta=0.3):
+    """The g**2 five-point operator with the phase e^{i theta} on its
+    x-links: complex Hermitian, banded, Poisson's spectrum."""
+    from sparse_linear_tpu_torch.utils.grids import poisson_2d
+
+    coo = poisson_2d(g, dtype=torch.float64, device="cpu").tocoo()
+    r, c = np_of(coo.row), np_of(coo.col)
+    vals = np_of(coo.data) * np.exp(1j * theta * (r % g - c % g))
+    return st.from_triples((g * g, g * g), r, c, vals, device="cpu").tocsr()
+
+
+def _row_case(case):
+    """(A, B or None, m0, interval, params, mesh shape, route of A)."""
+    from sparse_linear_tpu_torch.utils.grids import laplacian_1d, poisson_2d
+
+    g = 12
+    mf = dict(tol=1e-12, backend="multifrontal")
+    if case == "dia":
+        return (poisson_2d(g, dtype=torch.float64, device="cpu"), None, 16,
+                (0.0, 1.0), dict(mf, dims=(g, g)), (2, 2), "dia")
+    if case == "well permuted":
+        return (_permuted_port(g), None, 16, (0.0, 1.0), mf, (2, 2), "well")
+    if case == "complex":
+        return (_gauge_port(g), None, 16, (0.0, 1.0), dict(mf, dims=(g, g)),
+                (2, 2), "dia")
+    if case == "rows not divisible":
+        return (laplacian_1d(15, dtype=torch.float64, device="cpu"), None, 6,
+                (0.2, 1.2), dict(tol=1e-12), (2, 4), "dia")
+    if case == "generalized":
+        a = poisson_2d(g, dtype=torch.float64, device="cpu")
+        d = 1.0 + 0.5 * np.random.default_rng(5).random(g * g)
+        b = st.from_triples((g * g, g * g), np.arange(g * g),
+                            np.arange(g * g), d, device="cpu").tocsr()
+        return a, b, 16, (0.0, 0.8), dict(mf, dims=(g, g)), (2, 3), "dia"
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["dia", "well permuted", "complex",
+                                  "rows not divisible", "generalized"])
+def test_row_sharded_feast_matches_unsharded(case):
+    """The row-sharded subspace on each route, in c128, with n that the
+    rows shards do not divide (zero-padded DIA slabs) and with B != I (its
+    own row-sharded DIA): the unsharded port's loop count and eigenvalues
+    within 1e-12 on the interval's scale, epsout < 1e-10, and vectors and
+    subspace whole, on the matrices' device."""
+    a, b, m0, iv, p, shape, route = _row_case(case)
+    params = tfeast.FeastParams(**p)
+
+    def solve(mesh=None):
+        if b is None:
+            return tfeast.eigsh(m0, iv, a, params, mesh=mesh)
+        return tfeast.geigsh(m0, iv, a, b, params, mesh=mesh)
+
+    single = solve()
+    res = solve(card_mesh(shape, ("cp", "rows"), device="cpu"))
+    run = pipeline.last_run
+    n = a.shape[0]
+    assert run["mode"] == "sharded" and len(run["shards"]) == shape[0]
+    assert len(run["rows_shards"]) == shape[1]
+    assert run["rows_local"] == -(-n // shape[1])
+    assert run["routes"][0] == route
+    assert res.n_found == single.n_found > 0
+    assert res.iterations == single.iterations
+    assert res.epsout < 1e-10
+    scale = max(abs(iv[0]), abs(iv[1]), 1.0)
+    assert np.max(np.abs(res.values - single.values)) <= 1e-12 * scale
+    assert tuple(res.vectors.shape) == (n, res.n_found)
+    assert tuple(res.subspace.shape) == (n, m0)
+    assert res.vectors.device == a.data.device
+    assert res.vectors.dtype == single.vectors.dtype
+
+
+def test_row_sharded_feast_warm_start():
+    """A ``guess`` given to a row-sharded call is split over the rows
+    shards: from the cold run's subspace the warm run takes the unsharded
+    warm run's loops and eigenvalues (1e-12), as a tensor or numpy."""
+    a, _, m0, iv, p, shape, _ = _row_case("well permuted")
+    params = tfeast.FeastParams(**p)
+    mesh = card_mesh(shape, ("cp", "rows"), device="cpu")
+    cold = tfeast.eigsh(m0, iv, a, params, mesh=mesh)
+    single = tfeast.eigsh(m0, iv, a, params, guess=cold.subspace)
+    for guess in (cold.subspace, np_of(cold.subspace)):
+        warm = tfeast.eigsh(m0, iv, a, params, guess=guess, mesh=mesh)
+        assert len(pipeline.last_run["rows_shards"]) == shape[1]
+        assert warm.iterations == single.iterations <= cold.iterations
+        assert warm.n_found == single.n_found
+        np.testing.assert_allclose(warm.values, single.values, rtol=0,
+                                   atol=1e-12)
+
+
+def test_row_sharded_byte_plan_counts_the_row_pieces():
+    """``card_needs`` counts each contour shard's quadrature sum, the row
+    pieces of a row-sharded subspace and the whole psum'd sum on the first
+    rows shard's card, on the card that holds each."""
+    from sparse_linear_tpu_torch.utils.grids import laplacian_1d
+
+    a = laplacian_1d(40, dtype=torch.float64, device="cpu")
+    pipe = pipeline._Pipeline(a, st.eye(40, dtype=torch.float64,
+                                        device="cpu"), "dense", None)
+    c0, c1 = torch.device("cpu", 0), torch.device("cpu", 1)
+    base = pipe.needs([4], 8)
+    block = 40 * 8 * 8
+    need = pipe.card_needs([(c0, 4)], 8, [(c0, 20), (c1, 20)])
+    for mode, v in base.items():
+        assert need[c0][mode] == (v + block + pipeline._ROW_COPIES * 20 * 8 * 8
+                                  + block)
+        assert need[c1][mode] == pipeline._ROW_COPIES * 20 * 8 * 8
+    assert pipe.card_needs([(c0, 4)], 8)[c0]["batched"] == (
+        base["batched"] + block)
 
 
 # ---------------------------------------------------------------- dry run

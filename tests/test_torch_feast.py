@@ -378,9 +378,9 @@ def test_invalid_args():
         eigsh(2, (0.0, 1.0), a, FeastParams(complex_strategy="embedded"))
     with pytest.raises(ValueError, match="contour_batching"):
         eigsh(2, (0.0, 1.0), a, FeastParams(contour_batching="scan"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        eigsh(2, (0.0, 1.0), a, mesh=Mesh(np.array(["cpu"] * 4).reshape(
-            2, 2), ("cp", "rows")))
+    with pytest.raises(ValueError, match="not divisible"):
+        eigsh(2, (0.0, 1.0), a, FeastParams(contour_points=3),
+              mesh=Mesh(np.array(["cpu"] * 4).reshape(2, 2), ("cp", "rows")))
     with pytest.raises(ValueError, match="quadrature"):
         eigsh(2, (0.0, 1.0), a, FeastParams(quadrature="bogus"))
 

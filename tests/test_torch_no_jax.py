@@ -34,12 +34,22 @@ def test_port_imports_without_jax():
     assert int(proc.stdout.strip()) >= 44
 
 
+def _port_sources():
+    """The port's modules, its walkthroughs and its scale rehearsal."""
+    yield from (ROOT / "sparse_linear_tpu_torch").rglob("*.py")
+    yield from (ROOT / "examples").glob("torch_*.py")
+    yield ROOT / "tools" / "torch_multichip_scale.py"
+
+
 def test_port_sources_name_no_jax():
-    for path in (ROOT / "sparse_linear_tpu_torch").rglob("*.py"):
+    paths = list(_port_sources())
+    assert len([p for p in paths if p.parent.name == "examples"]) == 4
+    for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()
             assert not (words[:1] in (["import"], ["from"])
-                        and words[1].split(".")[0] == "jax"), (path, line)
+                        and words[1].split(".")[0] in (
+                            "jax", "sparse_linear_tpu")), (path, line)
 
 
 _MAPS_PROBE = """
