@@ -35,6 +35,7 @@ import torch
 
 from sparse_linear_tpu_torch.dtypes import real_of
 from sparse_linear_tpu_torch.formats.matrix import eye
+from sparse_linear_tpu_torch.utils.profiling import annotate
 
 __all__ = ["FeastParams", "EigResult", "eigsh", "geigsh",
            "count_eigenvalues", "eigsh_sliced", "geigsh_sliced", "INFO_OK",
@@ -302,7 +303,15 @@ def geigsh(m0, interval, mat_a, mat_b, params: FeastParams = FeastParams(),
     A and B run as row-sharded products, the Grams and norms as per-shard
     sums psum'd in shard order, and a ``guess`` is split; else the subspace
     and the Rayleigh-Ritz step stay on the matrices' device.  ``vectors``
-    and ``subspace`` come back whole on the matrices' device either way."""
+    and ``subspace`` come back whole on the matrices' device either way.
+    The call is the span ``slt.feast.eigsh``."""
+    with annotate("slt.feast.eigsh"):
+        return _geigsh(m0, interval, mat_a, mat_b, params, guess, mesh,
+                       contour_axis, rows_axis, device)
+
+
+def _geigsh(m0, interval, mat_a, mat_b, params, guess, mesh, contour_axis,
+            rows_axis, device):
     from sparse_linear_tpu_torch.eig import pipeline
 
     emin, emax, n = _check_args("geigsh", interval, mat_a, mat_b, params)
@@ -322,12 +331,14 @@ def eigsh(m0, interval, mat_a, params: FeastParams = FeastParams(),
           guess=None, mesh=None, contour_axis: str = "cp",
           rows_axis: str = "rows", *, device=None) -> EigResult:
     """Standard Hermitian interval problem: B = I (reference ``eigSH``,
-    Feast.hs:53-60,91-100); ``mesh`` as in :func:`geigsh`."""
-    mat_a, _ = _device_mats(mat_a, None, device)
-    b = eye(mat_a.shape[0], dtype=real_of(mat_a.dtype),
-            device=mat_a.data.device)
-    return geigsh(m0, interval, mat_a, b, params=params, guess=guess,
-                  mesh=mesh, contour_axis=contour_axis, rows_axis=rows_axis)
+    Feast.hs:53-60,91-100); ``mesh`` as in :func:`geigsh`.  The call,
+    identity B included, is the span ``slt.feast.eigsh``."""
+    with annotate("slt.feast.eigsh"):
+        mat_a, _ = _device_mats(mat_a, None, device)
+        b = eye(mat_a.shape[0], dtype=real_of(mat_a.dtype),
+                device=mat_a.data.device)
+        return _geigsh(m0, interval, mat_a, b, params, guess, mesh,
+                       contour_axis, rows_axis, None)
 
 
 def count_eigenvalues(interval, mat_a, mat_b=None, probes: int = 16,

@@ -79,6 +79,7 @@ import numpy as np
 import torch
 
 from sparse_linear_tpu_torch.dtypes import complex_of, real_of
+from sparse_linear_tpu_torch.utils.profiling import annotate
 
 __all__ = ["geigsh_pipeline", "count_pipeline", "clear_pipeline_cache",
            "StructuredOp", "last_run"]
@@ -130,13 +131,14 @@ def _drop(pipe) -> None:
 
 def _fingerprint(mat) -> tuple:
     """Shape, dtype and hashes of host copies of indptr/indices/data
-    (``real_pipeline.py:66-76``)."""
-    csr = mat.tocsr()
-    n = csr.nnz
-    leaves = (csr.indptr, csr.indices[:n], csr.data[:n])
-    return (tuple(csr.shape), str(csr.dtype)) + tuple(
-        hash(t.detach().resolve_conj().cpu().numpy().tobytes())
-        for t in leaves)
+    (``real_pipeline.py:66-76``), in the span ``slt.feast.fingerprint``."""
+    with annotate("slt.feast.fingerprint"):
+        csr = mat.tocsr()
+        n = csr.nnz
+        leaves = (csr.indptr, csr.indices[:n], csr.data[:n])
+        return (tuple(csr.shape), str(csr.dtype)) + tuple(
+            hash(t.detach().resolve_conj().cpu().numpy().tobytes())
+            for t in leaves)
 
 
 def _sync(device) -> None:
@@ -377,12 +379,14 @@ class _Pipeline:
     # -- factors -----------------------------------------------------------
 
     def factor(self, zk):
+        """The factors of one node, in the span ``slt.feast.factor``."""
         from sparse_linear_tpu_torch.solve import api
 
-        pat = self.pattern
-        mat = type(pat)(indptr=pat.indptr, indices=pat.indices,
-                        data=self.values([zk])[0], shape=pat.shape)
-        return api.factor(mat, self.symbolic)
+        with annotate("slt.feast.factor"):
+            pat = self.pattern
+            mat = type(pat)(indptr=pat.indptr, indices=pat.indices,
+                            data=self.values([zk])[0], shape=pat.shape)
+            return api.factor(mat, self.symbolic)
 
     def contour(self, z, sigma, m: int, batching: str,
                 shards=None, rows=()) -> "_Contour":
@@ -477,9 +481,10 @@ class _Contour:
             gmode = shard_mode or mode
             factors = None
             if gmode == "batched":
-                factors = api.factor_batched(site.pattern,
-                                             site.values(z[idx]),
-                                             pipe.symbolic)
+                with annotate("slt.feast.factor"):
+                    factors = api.factor_batched(site.pattern,
+                                                 site.values(z[idx]),
+                                                 pipe.symbolic)
             elif gmode == "per-node":
                 factors = [site.factor(z[k]) for k in idx]
             self.groups.append((site, idx, gmode, factors))
@@ -516,7 +521,12 @@ class _Contour:
         sums are psum'd onto y's device in shard order.  A row-sharded y (a
         ShardedBlock, with ``b_op`` the row-sharded B) has B y gathered
         onto each contour shard's device, once a device, and q comes back
-        split into y's row pieces."""
+        split into y's row pieces.  The call is the span
+        ``slt.feast.filter``."""
+        with annotate("slt.feast.filter"):
+            return self._apply(y, refine_n, b_op)
+
+    def _apply(self, y, refine_n: int, b_op):
         from sparse_linear_tpu_torch.dist.collectives import gather, psum
         from sparse_linear_tpu_torch.dist.sharded import ShardedBlock, split
 
@@ -790,38 +800,41 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
         y = None
         _sync_all(sub_devices)
         t1 = time.perf_counter()
-        # ---- whitening and reduced blocks: plain matmuls on the card,
-        # the m0 x m0 eighs on the host
-        g = _gram(q, q)
-        t2 = time.perf_counter()
-        wmat = _whiten_mat(g)
-        t3 = time.perf_counter()
-        qw = _times(q, wmat)
-        del q
-        aq, bq = _reduced_blocks(a_op, b_op, qw)
-        t4 = time.perf_counter()
-        lam, coeff = _reduced_geig(aq, bq)
-        t5 = time.perf_counter()
-        m_kept = int(coeff.shape[1])
-        x = _times(qw, coeff)
-        del qw
-        lam_k = np.real(lam)[:m_kept]
-        bx = x if b_ident else b_op(x)
-        lam_t = torch.as_tensor(lam_k, dtype=rdt, device=dev)
-        rn = _col_norms(a_op(x) - bx * lam_t[None, :])
-        del bx
-        norms = _host(torch.stack([rn, _col_norms(x)]))
-        # ---- warm-restart subspace: kept Ritz columns + random refill
-        fill = None
-        if m_kept < m0:
-            gen = torch.Generator(device=dev).manual_seed(
-                params.seed + loop + 1)
-            fill = torch.randn((n, m0 - m_kept), dtype=pipe.wdtype,
-                               device=dev, generator=gen)
-        y = _restart(x, fill, m0)
-        del x, fill
-        res_k = norms[0] / np.maximum(norms[1], tiny) / lam_scale
-        _sync_all(sub_devices)
+        with annotate("slt.feast.rr"):
+            # ---- whitening and reduced blocks: plain matmuls on the card,
+            # the m0 x m0 eighs on the host
+            g = _gram(q, q)
+            t2 = time.perf_counter()
+            with annotate("slt.feast.eigh"):
+                wmat = _whiten_mat(g)
+            t3 = time.perf_counter()
+            qw = _times(q, wmat)
+            del q
+            aq, bq = _reduced_blocks(a_op, b_op, qw)
+            t4 = time.perf_counter()
+            with annotate("slt.feast.eigh"):
+                lam, coeff = _reduced_geig(aq, bq)
+            t5 = time.perf_counter()
+            m_kept = int(coeff.shape[1])
+            x = _times(qw, coeff)
+            del qw
+            lam_k = np.real(lam)[:m_kept]
+            bx = x if b_ident else b_op(x)
+            lam_t = torch.as_tensor(lam_k, dtype=rdt, device=dev)
+            rn = _col_norms(a_op(x) - bx * lam_t[None, :])
+            del bx
+            norms = _host(torch.stack([rn, _col_norms(x)]))
+            # ---- warm-restart subspace: kept Ritz columns + random refill
+            fill = None
+            if m_kept < m0:
+                gen = torch.Generator(device=dev).manual_seed(
+                    params.seed + loop + 1)
+                fill = torch.randn((n, m0 - m_kept), dtype=pipe.wdtype,
+                                   device=dev, generator=gen)
+            y = _restart(x, fill, m0)
+            del x, fill
+            res_k = norms[0] / np.maximum(norms[1], tiny) / lam_scale
+            _sync_all(sub_devices)
         t6 = time.perf_counter()
         gram_s = _gram.seconds - gram0
         products_s = (t2 - t1) + (t4 - t3) + (t6 - t5) - gram_s

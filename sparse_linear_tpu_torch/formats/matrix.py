@@ -38,6 +38,7 @@ from sparse_linear_tpu_torch.formats.base import (
     expand_indptr,
     tensor_dataclass,
 )
+from sparse_linear_tpu_torch.utils.profiling import annotate
 
 __all__ = ["COO", "CSR", "CSC", "from_triples", "eye", "zeros", "diag"]
 
@@ -207,7 +208,8 @@ class COO(_MatrixOpsMixin):
     def tocsr(self):
         from sparse_linear_tpu_torch.ops import build
 
-        return build.coo_to_csr(self)
+        with annotate("slt.format.tocsr"):
+            return build.coo_to_csr(self)
 
     def tocsc(self):
         from sparse_linear_tpu_torch.ops import build
@@ -310,7 +312,8 @@ class CSC(_MatrixOpsMixin):
     def tocsr(self):
         from sparse_linear_tpu_torch.ops import build
 
-        return build.reorder_major(self, to="csr")
+        with annotate("slt.format.tocsr"):
+            return build.reorder_major(self, to="csr")
 
     def col(self, j: int):
         """Column j as a sparse vector of length nrows (reference
@@ -363,31 +366,33 @@ def from_triples(shape, rows, cols, vals, dtype=None, *, device=None):
     in an unspecified order, which can change the sum of three or more
     duplicates in its last bit (within 1e-15 relative in f64).
     """
-    nr, nc = _shape2(shape)
-    device = default_device(device, rows, cols, vals)
-    rows = _as_tensor(rows, device)
-    cols = _as_tensor(cols, device)
-    vals = _as_tensor(vals, device,
-                      None if dtype is None else as_torch_dtype(dtype))
-    if not (rows.shape == cols.shape == vals.shape) or rows.ndim != 1:
-        raise ValueError("rows, cols, vals must be 1-D arrays of equal length")
-    bad = _first_bad((rows < 0) | (rows >= nr))
-    if bad is not None:
-        raise ValueError(
-            f"row index out of bounds at position {bad}: "
-            f"{int(rows[bad])} not in [0, {nr})"
-        )
-    bad = _first_bad((cols < 0) | (cols >= nc))
-    if bad is not None:
-        raise ValueError(
-            f"column index out of bounds at position {bad}: "
-            f"{int(cols[bad])} not in [0, {nc})"
-        )
-    from sparse_linear_tpu_torch.ops.build import _sort_dedup
+    with annotate("slt.format.from_triples"):
+        nr, nc = _shape2(shape)
+        device = default_device(device, rows, cols, vals)
+        rows = _as_tensor(rows, device)
+        cols = _as_tensor(cols, device)
+        vals = _as_tensor(vals, device,
+                          None if dtype is None else as_torch_dtype(dtype))
+        if not (rows.shape == cols.shape == vals.shape) or rows.ndim != 1:
+            raise ValueError(
+                "rows, cols, vals must be 1-D arrays of equal length")
+        bad = _first_bad((rows < 0) | (rows >= nr))
+        if bad is not None:
+            raise ValueError(
+                f"row index out of bounds at position {bad}: "
+                f"{int(rows[bad])} not in [0, {nr})"
+            )
+        bad = _first_bad((cols < 0) | (cols >= nc))
+        if bad is not None:
+            raise ValueError(
+                f"column index out of bounds at position {bad}: "
+                f"{int(cols[bad])} not in [0, {nc})"
+            )
+        from sparse_linear_tpu_torch.ops.build import _sort_dedup
 
-    row, col, data = _sort_dedup(rows, cols, vals, nr, nc)
-    return COO(row=row, col=col, data=data, shape=(nr, nc),
-               nnz=int(row.shape[0]))
+        row, col, data = _sort_dedup(rows, cols, vals, nr, nc)
+        return COO(row=row, col=col, data=data, shape=(nr, nc),
+                   nnz=int(row.shape[0]))
 
 
 def diag(values, shape=None, *, device=None):

@@ -14,6 +14,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from sparse_linear_tpu_torch.dtypes import real_of
+from sparse_linear_tpu_torch.utils.profiling import annotate
 
 __all__ = ["cg", "CgResult"]
 
@@ -47,30 +48,32 @@ def cg(
 
     ``matvec``: x -> A @ x (any callable closing over a sparse format).
     ``m_inv``: optional preconditioner r -> M^{-1} r.
-    Stops at ||r|| <= tol * ||b|| or maxiter.
+    Stops at ||r|| <= tol * ||b|| or maxiter.  The whole call is the
+    span ``slt.cg``.
     """
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
-    precond = m_inv if m_inv is not None else (lambda r: r)
+    with annotate("slt.cg"):
+        x = torch.zeros_like(b) if x0 is None else x0.clone()
+        precond = m_inv if m_inv is not None else (lambda r: r)
 
-    r = b - matvec(x)
-    z = precond(r)
-    p = z.clone()
-    gamma = _inner(r, z)
-    bnorm = max(float(torch.linalg.vector_norm(b)),
-                torch.finfo(real_of(b.dtype)).tiny)
-    atol2 = (tol * bnorm) ** 2
-
-    k = 0
-    while k < maxiter and float(_inner(r, r)) > atol2:
-        ap = matvec(p)
-        alpha = gamma / _inner(p, ap)
-        x.addcmul_(alpha, p)
-        r.addcmul_(alpha, ap, value=-1)
+        r = b - matvec(x)
         z = precond(r)
-        gamma_new = _inner(r, z)
-        p.mul_(gamma_new / gamma).add_(z)
-        gamma = gamma_new
-        k += 1
-    rnorm = torch.linalg.vector_norm(r)
-    return CgResult(x=x, iterations=k, residual_norm=rnorm,
-                    converged=bool(rnorm <= tol * bnorm))
+        p = z.clone()
+        gamma = _inner(r, z)
+        bnorm = max(float(torch.linalg.vector_norm(b)),
+                    torch.finfo(real_of(b.dtype)).tiny)
+        atol2 = (tol * bnorm) ** 2
+
+        k = 0
+        while k < maxiter and float(_inner(r, r)) > atol2:
+            ap = matvec(p)
+            alpha = gamma / _inner(p, ap)
+            x.addcmul_(alpha, p)
+            r.addcmul_(alpha, ap, value=-1)
+            z = precond(r)
+            gamma_new = _inner(r, z)
+            p.mul_(gamma_new / gamma).add_(z)
+            gamma = gamma_new
+            k += 1
+        rnorm = torch.linalg.vector_norm(r)
+        return CgResult(x=x, iterations=k, residual_norm=rnorm,
+                        converged=bool(rnorm <= tol * bnorm))

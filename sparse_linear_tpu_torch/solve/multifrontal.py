@@ -20,6 +20,9 @@ Umfpack.hs:38-102).
   diagnostics stay device tensors until asked for.
 * ``solve`` runs the level-batched forward and backward substitutions with
   the same calls.
+* Spans (``utils.profiling.annotate``): ``slt.mf.analyze`` and its five
+  stages, ``slt.mf.factor`` with ``slt.mf.factor.level`` a tree level,
+  ``slt.mf.solve`` with ``slt.mf.solve.level`` a level of each pass.
 
 Front layout (per supernode, padded to its bucket's classes):
 
@@ -70,6 +73,7 @@ import torch
 from sparse_linear_tpu_torch.dtypes import default_device
 from sparse_linear_tpu_torch.formats.matrix import from_triples
 from sparse_linear_tpu_torch.ops.build import trim
+from sparse_linear_tpu_torch.utils.profiling import annotate
 
 __all__ = ["analyze", "factor", "factor_batched", "solve", "solve_batched",
            "solve_part", "slogdet", "rcond", "get_factors", "lunz",
@@ -246,7 +250,15 @@ def analyze(mat, ordering: str = "auto", dims=None,
     ``engine``: "native" (the host library) or "python" (the plain
     version, ``solve/symbolic_py.py``; small problems and tests only).
     Host work on numpy arrays: the matrix's pattern is copied to the host
-    once."""
+    once.  The call is the span ``slt.mf.analyze``, its stages the spans
+    ``slt.mf.analyze.order``, ``.symmetrize``, ``.symbolic``, ``.schedule``
+    and ``.maps``."""
+    with annotate("slt.mf.analyze"):
+        return _analyze(mat, ordering, dims, relax_small, relax_frac, perm,
+                        engine)
+
+
+def _analyze(mat, ordering, dims, relax_small, relax_frac, perm, engine):
     from sparse_linear_tpu_torch.solve import ordering as ord_mod
     from sparse_linear_tpu_torch.solve.symbolic_py import python_symbolic
     from sparse_linear_tpu_torch.utils.native import native_symbolic
@@ -260,152 +272,162 @@ def analyze(mat, ordering: str = "auto", dims=None,
     indptr = _np(mat.indptr).astype(np.int64)
     indices = _np(mat.indices)
 
-    if perm is None:
-        if ordering == "auto":
-            ordering = "nd" if dims is not None else "amd"
-        if ordering in ("nd", "nested-dissection") and dims is not None:
-            perm = ord_mod.nested_dissection_grid(dims)
-        elif ordering in ("nd", "nested-dissection", "rcm", "amd"):
-            sp_ip, sp_ix = _symmetrized_pattern(
-                indptr, indices, n, np.arange(n, dtype=np.int32))
-            fn = {"rcm": ord_mod.rcm, "amd": ord_mod.amd}.get(
-                ordering, ord_mod.nested_dissection)
-            perm = fn(sp_ip, sp_ix, n)
-        elif ordering == "natural":
-            perm = ord_mod.natural(n)
-        else:
-            raise ValueError(f"unknown ordering: {ordering}")
-    perm = np.asarray(perm, dtype=np.int32)
-    if perm.shape != (n,):
-        raise ValueError(f"analyze: perm must have shape ({n},)")
+    with annotate("slt.mf.analyze.order"):
+        if perm is None:
+            if ordering == "auto":
+                ordering = "nd" if dims is not None else "amd"
+            if ordering in ("nd", "nested-dissection") and dims is not None:
+                perm = ord_mod.nested_dissection_grid(dims)
+            elif ordering in ("nd", "nested-dissection", "rcm", "amd"):
+                sp_ip, sp_ix = _symmetrized_pattern(
+                    indptr, indices, n, np.arange(n, dtype=np.int32))
+                fn = {"rcm": ord_mod.rcm, "amd": ord_mod.amd}.get(
+                    ordering, ord_mod.nested_dissection)
+                perm = fn(sp_ip, sp_ix, n)
+            elif ordering == "natural":
+                perm = ord_mod.natural(n)
+            else:
+                raise ValueError(f"unknown ordering: {ordering}")
+        perm = np.asarray(perm, dtype=np.int32)
+        if perm.shape != (n,):
+            raise ValueError(f"analyze: perm must have shape ({n},)")
 
-    ip, ix = _symmetrized_pattern(indptr, indices, n, perm)
-    symbolic = native_symbolic if engine == "native" else python_symbolic
-    sym = symbolic(n, ip, ix, relax_small, relax_frac)
+    with annotate("slt.mf.analyze.symmetrize"):
+        ip, ix = _symmetrized_pattern(indptr, indices, n, perm)
+    with annotate("slt.mf.analyze.symbolic"):
+        symbolic = native_symbolic if engine == "native" else python_symbolic
+        sym = symbolic(n, ip, ix, relax_small, relax_frac)
 
-    nsuper = sym["nsuper"]
-    sup_start = sym["sup_start"].astype(np.int64)
-    sup_parent = sym["sup_parent"]
-    sup_level = sym["sup_level"]
-    rows_ptr = sym["rows_ptr"].astype(np.int64)
-    rows = sym["rows"].astype(np.int64)
+    with annotate("slt.mf.analyze.schedule"):
+        nsuper = sym["nsuper"]
+        sup_start = sym["sup_start"].astype(np.int64)
+        sup_parent = sym["sup_parent"]
+        sup_level = sym["sup_level"]
+        rows_ptr = sym["rows_ptr"].astype(np.int64)
+        rows = sym["rows"].astype(np.int64)
 
-    sup_of = np.repeat(np.arange(nsuper, dtype=np.int64), np.diff(sup_start))
-    nc_arr = np.diff(sup_start)
-    fs_arr = np.diff(rows_ptr)
-    us_arr = fs_arr - nc_arr
+        sup_of = np.repeat(np.arange(nsuper, dtype=np.int64),
+                           np.diff(sup_start))
+        nc_arr = np.diff(sup_start)
+        fs_arr = np.diff(rows_ptr)
+        us_arr = fs_arr - nc_arr
 
-    # ---- bucket assignment: (level, Ns class, Us class)
-    ns_class = np.array([_class_of(int(c)) for c in nc_arr])
-    us_class = np.array([_class_of(int(u)) if u > 0 else 8 for u in us_arr])
-    height = sym["height"]
+        # ---- bucket assignment: (level, Ns class, Us class)
+        ns_class = np.array([_class_of(int(c)) for c in nc_arr])
+        us_class = np.array([_class_of(int(u)) if u > 0 else 8
+                             for u in us_arr])
+        height = sym["height"]
 
-    buckets = {}  # (lvl, Ns, Us) -> list of sup ids
-    for s in range(nsuper):
-        key = (int(sup_level[s]), int(ns_class[s]), int(us_class[s]))
-        buckets.setdefault(key, []).append(s)
-    # canonical bucket ordering per level
-    level_buckets = [[] for _ in range(height + 1)]
-    bucket_of_sup = np.empty(nsuper, dtype=np.int64)  # flat bucket index
-    slot_of_sup = np.empty(nsuper, dtype=np.int64)
-    flat = []
-    for (lvl, nsc, usc), ids in sorted(buckets.items()):
-        bidx = len(flat)
-        flat.append({"level": lvl, "Ns": nsc, "Us": usc,
-                     "sup_ids": np.asarray(ids, dtype=np.int64)})
-        level_buckets[lvl].append(bidx)
-        bucket_of_sup[ids] = bidx
-        slot_of_sup[ids] = np.arange(len(ids))
+        buckets = {}  # (lvl, Ns, Us) -> list of sup ids
+        for s in range(nsuper):
+            key = (int(sup_level[s]), int(ns_class[s]), int(us_class[s]))
+            buckets.setdefault(key, []).append(s)
+        # canonical bucket ordering per level
+        level_buckets = [[] for _ in range(height + 1)]
+        bucket_of_sup = np.empty(nsuper, dtype=np.int64)  # flat bucket index
+        slot_of_sup = np.empty(nsuper, dtype=np.int64)
+        flat = []
+        for (lvl, nsc, usc), ids in sorted(buckets.items()):
+            bidx = len(flat)
+            flat.append({"level": lvl, "Ns": nsc, "Us": usc,
+                         "sup_ids": np.asarray(ids, dtype=np.int64)})
+            level_buckets[lvl].append(bidx)
+            bucket_of_sup[ids] = bidx
+            slot_of_sup[ids] = np.arange(len(ids))
 
-    # ---- global locate structure (one searchsorted serves every query)
-    below_ptr, below_rows, below_seg, gkey = _below_index(
-        nsuper, n, rows_ptr, rows, nc_arr)
+    with annotate("slt.mf.analyze.maps"):
+        # ---- global locate structure (one searchsorted serves every query)
+        below_ptr, below_rows, below_seg, gkey = _below_index(
+            nsuper, n, rows_ptr, rows, nc_arr)
 
-    def locate_padded(s_ids, rowvals):
-        loc = _locate_vec(s_ids, rowvals, sup_start, nc_arr, below_ptr,
-                          gkey, n)
-        nc_s = nc_arr[s_ids]
-        return np.where(loc < nc_s, loc, loc - nc_s + ns_class[s_ids])
+        def locate_padded(s_ids, rowvals):
+            loc = _locate_vec(s_ids, rowvals, sup_start, nc_arr, below_ptr,
+                              gkey, n)
+            nc_s = nc_arr[s_ids]
+            return np.where(loc < nc_s, loc, loc - nc_s + ns_class[s_ids])
 
-    # ---- A-entry scatter maps (permuted entries -> (bucket, slot, r, c))
-    e_rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
-    e_cols = indices.astype(np.int64)
-    iperm = np.empty(n, dtype=np.int64)
-    iperm[perm] = np.arange(n)
-    pr, pc = iperm[e_rows], iperm[e_cols]
-    owner = sup_of[np.minimum(pr, pc)]
-    pad_r = locate_padded(owner, pr)
-    pad_c = locate_padded(owner, pc)
+        # ---- A-entry scatter maps (permuted entries -> (bucket, slot, r, c))
+        e_rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+        e_cols = indices.astype(np.int64)
+        iperm = np.empty(n, dtype=np.int64)
+        iperm[perm] = np.arange(n)
+        pr, pc = iperm[e_rows], iperm[e_cols]
+        owner = sup_of[np.minimum(pr, pc)]
+        pad_r = locate_padded(owner, pr)
+        pad_c = locate_padded(owner, pc)
 
-    a_entry_maps = {}
-    owner_bucket = bucket_of_sup[owner]
-    for bidx in range(len(flat)):
-        in_b = owner_bucket == bidx
-        a_entry_maps[bidx] = {
-            "src": np.nonzero(in_b)[0].astype(np.int32),
-            "slot": slot_of_sup[owner[in_b]].astype(np.int32),
-            "r": pad_r[in_b].astype(np.int32),
-            "c": pad_c[in_b].astype(np.int32),
-        }
+        a_entry_maps = {}
+        owner_bucket = bucket_of_sup[owner]
+        for bidx in range(len(flat)):
+            in_b = owner_bucket == bidx
+            a_entry_maps[bidx] = {
+                "src": np.nonzero(in_b)[0].astype(np.int32),
+                "slot": slot_of_sup[owner[in_b]].astype(np.int32),
+                "r": pad_r[in_b].astype(np.int32),
+                "c": pad_c[in_b].astype(np.int32),
+            }
 
-    # ---- child extend-add maps: ONE global locate for all update rows,
-    # then vectorized padded-map assembly per (parent bucket, child bucket)
-    has_parent = (sup_parent >= 0) & (us_arr > 0)
-    child_ids = np.nonzero(has_parent)[0]
-    parent_of = sup_parent[child_ids].astype(np.int64)
-    q_sup = np.repeat(parent_of, us_arr[child_ids])
-    # below_rows is supernode-major, so the children's update rows (in
-    # ascending child id order) are exactly the masked selection
-    q_mask = has_parent[below_seg]
-    q_rows = below_rows[q_mask]
-    located = locate_padded(q_sup, q_rows) if q_rows.size else q_rows
+        # ---- child extend-add maps: ONE global locate for all update rows,
+        # then vectorized padded-map assembly per (parent bucket, child bucket)
+        has_parent = (sup_parent >= 0) & (us_arr > 0)
+        child_ids = np.nonzero(has_parent)[0]
+        parent_of = sup_parent[child_ids].astype(np.int64)
+        q_sup = np.repeat(parent_of, us_arr[child_ids])
+        # below_rows is supernode-major, so the children's update rows (in
+        # ascending child id order) are exactly the masked selection
+        q_mask = has_parent[below_seg]
+        q_rows = below_rows[q_mask]
+        located = locate_padded(q_sup, q_rows) if q_rows.size else q_rows
 
-    child_groups = {}
-    # group (child, parent) pairs by bucket pair
-    pair_key = bucket_of_sup[parent_of] * len(flat) + bucket_of_sup[child_ids]
-    order_p = np.argsort(pair_key, kind="stable")
-    sorted_keys = pair_key[order_p]
-    # offsets of each child's located block within `located`
-    loc_ofs = np.zeros(child_ids.shape[0] + 1, dtype=np.int64)
-    np.cumsum(us_arr[child_ids], out=loc_ofs[1:])
-    for key in np.unique(pair_key):
-        sel = order_p[np.searchsorted(sorted_keys, key):
-                      np.searchsorted(sorted_keys, key, side="right")]
-        pb = int(key) // len(flat)
-        cb = int(key) % len(flat)
-        cs = child_ids[sel]
-        uc = flat[cb]["Us"]
-        m_idx = loc_ofs[sel][:, None] + np.arange(uc)[None, :]
-        valid = np.arange(uc)[None, :] < us_arr[cs][:, None]
-        maps = np.where(valid,
-                        located[np.minimum(m_idx, located.shape[0] - 1)], -1)
-        child_groups.setdefault(pb, {})[cb] = {
-            "cslot": slot_of_sup[cs].astype(np.int32),
-            "pslot": slot_of_sup[sup_parent[cs]].astype(np.int32),
-            "maps": maps.astype(np.int32),
-        }
+        child_groups = {}
+        # group (child, parent) pairs by bucket pair
+        pair_key = (bucket_of_sup[parent_of] * len(flat)
+                    + bucket_of_sup[child_ids])
+        order_p = np.argsort(pair_key, kind="stable")
+        sorted_keys = pair_key[order_p]
+        # offsets of each child's located block within `located`
+        loc_ofs = np.zeros(child_ids.shape[0] + 1, dtype=np.int64)
+        np.cumsum(us_arr[child_ids], out=loc_ofs[1:])
+        for key in np.unique(pair_key):
+            sel = order_p[np.searchsorted(sorted_keys, key):
+                          np.searchsorted(sorted_keys, key, side="right")]
+            pb = int(key) // len(flat)
+            cb = int(key) % len(flat)
+            cs = child_ids[sel]
+            uc = flat[cb]["Us"]
+            m_idx = loc_ofs[sel][:, None] + np.arange(uc)[None, :]
+            valid = np.arange(uc)[None, :] < us_arr[cs][:, None]
+            maps = np.where(valid,
+                            located[np.minimum(m_idx,
+                                               located.shape[0] - 1)], -1)
+            child_groups.setdefault(pb, {})[cb] = {
+                "cslot": slot_of_sup[cs].astype(np.int32),
+                "pslot": slot_of_sup[sup_parent[cs]].astype(np.int32),
+                "maps": maps.astype(np.int32),
+            }
 
-    # ---- per-bucket solve row maps (padded with sentinel n), vectorized
-    for bidx, b in enumerate(flat):
-        ids = b["sup_ids"]
-        ns_c, us_c = b["Ns"], b["Us"]
-        ar_ns = np.arange(ns_c)[None, :]
-        ar_us = np.arange(us_c)[None, :]
-        nc_b = nc_arr[ids][:, None]
-        us_b = us_arr[ids][:, None]
-        rows_piv = np.where(ar_ns < nc_b, sup_start[ids][:, None] + ar_ns, n)
-        bidx_mat = below_ptr[ids][:, None] + ar_us
-        rows_upd = np.where(
-            ar_us < us_b,
-            below_rows[np.minimum(bidx_mat, below_rows.shape[0] - 1)]
-            if below_rows.size
-            else n,
-            n,
-        )
-        b["rows_piv"] = rows_piv.astype(np.int32)
-        b["rows_upd"] = rows_upd.astype(np.int32)
-        b["ns_real"] = nc_arr[ids].astype(np.int32)
-        b["children"] = child_groups.get(bidx, {})
+        # ---- per-bucket solve row maps (padded with sentinel n), vectorized
+        for bidx, b in enumerate(flat):
+            ids = b["sup_ids"]
+            ns_c, us_c = b["Ns"], b["Us"]
+            ar_ns = np.arange(ns_c)[None, :]
+            ar_us = np.arange(us_c)[None, :]
+            nc_b = nc_arr[ids][:, None]
+            us_b = us_arr[ids][:, None]
+            rows_piv = np.where(ar_ns < nc_b,
+                                sup_start[ids][:, None] + ar_ns, n)
+            bidx_mat = below_ptr[ids][:, None] + ar_us
+            rows_upd = np.where(
+                ar_us < us_b,
+                below_rows[np.minimum(bidx_mat, below_rows.shape[0] - 1)]
+                if below_rows.size
+                else n,
+                n,
+            )
+            b["rows_piv"] = rows_piv.astype(np.int32)
+            b["rows_upd"] = rows_upd.astype(np.int32)
+            b["ns_real"] = nc_arr[ids].astype(np.int32)
+            b["children"] = child_groups.get(bidx, {})
 
     schedule = {
         "flat": flat,
@@ -611,6 +633,17 @@ def _mesh_parts(symbolic: MFSymbolic, dm, devices):
     return parts
 
 
+def _by_level(level_buckets, span: str, down: bool = False,
+              direction: str | None = None):
+    """The flat bucket indices level by level, bottom-up (top-down with
+    ``down``), each level inside the span ``span``, whose args are the
+    level (and ``direction``)."""
+    lvls = range(len(level_buckets))
+    for lvl in (reversed(lvls) if down else lvls):
+        with annotate(span, lvl if direction is None else (lvl, direction)):
+            yield from level_buckets[lvl]
+
+
 def _factor_run(symbolic: MFSymbolic, dm, a_data, kind: str,
                 pivot_eps: float, parts=None):
     """The level/bucket loop over E value-sets ``a_data`` (E, nnz).
@@ -635,84 +668,84 @@ def _factor_run(symbolic: MFSymbolic, dm, a_data, kind: str,
     updates = {}  # bucket -> its Schur updates: (E, nb_part, Us, Us) a part
     pending = dict(dm["readers"])
     n_flag = torch.zeros(ne, dtype=torch.int64, device=device)
-    for lvl_buckets in symbolic.schedule["level_buckets"]:
-        for bidx in lvl_buckets:
-            b = flat[bidx]
-            nb = b["sup_ids"].shape[0]
-            ns_c, us_c = b["Ns"], b["Us"]
-            fs = ns_c + us_c
-            split = None if parts is None else parts[bidx]
-            if split is None:
-                am = dm["a"][bidx]
-                split = [(device, am["src"], am["dst"], dm["children"][bidx],
-                          dm["pad"][bidx])]
-            fronts = []
-            got = {}  # (child bucket, device): its updates gathered there
-            for dev, a_src, a_dst, children, pad in split:
-                if dev not in a_on:
-                    a_on[dev] = fresh(a_data, dev)
-                nbp = pad.shape[0]
-                front = torch.zeros((ne, nbp * fs * fs), dtype=dtype,
-                                    device=dev)
-                if a_src.shape[0]:
-                    front.index_add_(1, a_dst,
-                                     a_on[dev].index_select(1, a_src))
-                for cb, src, dst in children:
-                    if (cb, dev) not in got:
-                        u = updates[cb]
-                        got[cb, dev] = (
-                            u[0] if len(u) == 1 and u[0].device == dev
-                            else gather(u, dev, dim=1)).reshape(ne, -1)
-                    front.index_add_(1, dst,
-                                     got[cb, dev].index_select(1, src))
-                front = front.view(ne, nbp, fs, fs)
-                torch.diagonal(front, dim1=2, dim2=3)[..., :ns_c] += \
-                    pad.to(dtype)
-                fronts.append(front)
-            del got
-            for cb, _, _ in dm["children"][bidx]:
-                pending[cb] -= 1
-                if pending[cb] == 0:
-                    del updates[cb]
-            out = []
-            while fronts:
-                front = fronts.pop(0)
-                nbp = front.shape[1]
-                out.append((nbp,) + bucket_fn(front.view(ne * nbp, fs, fs),
-                                              ns_c, pivot_eps))
-                del front
+    for bidx in _by_level(symbolic.schedule["level_buckets"],
+                          "slt.mf.factor.level"):
+        b = flat[bidx]
+        nb = b["sup_ids"].shape[0]
+        ns_c, us_c = b["Ns"], b["Us"]
+        fs = ns_c + us_c
+        split = None if parts is None else parts[bidx]
+        if split is None:
+            am = dm["a"][bidx]
+            split = [(device, am["src"], am["dst"], dm["children"][bidx],
+                      dm["pad"][bidx])]
+        fronts = []
+        got = {}  # (child bucket, device): its updates gathered there
+        for dev, a_src, a_dst, children, pad in split:
+            if dev not in a_on:
+                a_on[dev] = fresh(a_data, dev)
+            nbp = pad.shape[0]
+            front = torch.zeros((ne, nbp * fs * fs), dtype=dtype,
+                                device=dev)
+            if a_src.shape[0]:
+                front.index_add_(1, a_dst,
+                                 a_on[dev].index_select(1, a_src))
+            for cb, src, dst in children:
+                if (cb, dev) not in got:
+                    u = updates[cb]
+                    got[cb, dev] = (
+                        u[0] if len(u) == 1 and u[0].device == dev
+                        else gather(u, dev, dim=1)).reshape(ne, -1)
+                front.index_add_(1, dst,
+                                 got[cb, dev].index_select(1, src))
+            front = front.view(ne, nbp, fs, fs)
+            torch.diagonal(front, dim1=2, dim2=3)[..., :ns_c] += \
+                pad.to(dtype)
+            fronts.append(front)
+        del got
+        for cb, _, _ in dm["children"][bidx]:
+            pending[cb] -= 1
+            if pending[cb] == 0:
+                del updates[cb]
+        out = []
+        while fronts:
+            front = fronts.pop(0)
+            nbp = front.shape[1]
+            out.append((nbp,) + bucket_fn(front.view(ne * nbp, fs, fs),
+                                          ns_c, pivot_eps))
+            del front
 
-            def joined(i, shape):
-                ts = [o[i].reshape((ne, o[0]) + shape) for o in out]
-                if len(ts) == 1:
-                    return ts[0]
-                # gathered in the unsharded layout (torch.linalg's
-                # column-major blocks), so that a solve runs the same BLAS
-                # paths on them, bitwise
-                order = sorted(range(ts[0].ndim),
-                               key=lambda d: -ts[0].stride(d))
-                back = [order.index(d) for d in range(len(order))]
-                return gather([t.permute(order) for t in ts], device,
-                              dim=order.index(1)).permute(back)
+        def joined(i, shape):
+            ts = [o[i].reshape((ne, o[0]) + shape) for o in out]
+            if len(ts) == 1:
+                return ts[0]
+            # gathered in the unsharded layout (torch.linalg's
+            # column-major blocks), so that a solve runs the same BLAS
+            # paths on them, bitwise
+            order = sorted(range(ts[0].ndim),
+                           key=lambda d: -ts[0].stride(d))
+            back = [order.index(d) for d in range(len(order))]
+            return gather([t.permute(order) for t in ts], device,
+                          dim=order.index(1)).permute(back)
 
-            for o in out:
-                n_flag += o[6].view(ne, o[0]).sum(dim=1).to(device)
-            blocks[bidx] = {
-                "lu": joined(1, (ns_c, ns_c)),
-                "perm": joined(2, (ns_c,)),
-                "g21": joined(3, (us_c, ns_c)),
-                "g12": joined(4, (ns_c, us_c)),
-            }
-            if kind == "cholesky" and len(out) > 1:
-                # the unsharded views: the identity permutation expanded
-                # and g21 = g12^H
-                blk = blocks[bidx]
-                blk["perm"] = blk["perm"][:1, :1].expand(ne, nb, ns_c)
-                blk["g21"] = blk["g12"].mH
-            if pending.get(bidx):
-                updates[bidx] = [o[5].view(ne, o[0], us_c, us_c)
-                                 for o in out]
-            del out
+        for o in out:
+            n_flag += o[6].view(ne, o[0]).sum(dim=1).to(device)
+        blocks[bidx] = {
+            "lu": joined(1, (ns_c, ns_c)),
+            "perm": joined(2, (ns_c,)),
+            "g21": joined(3, (us_c, ns_c)),
+            "g12": joined(4, (ns_c, us_c)),
+        }
+        if kind == "cholesky" and len(out) > 1:
+            # the unsharded views: the identity permutation expanded
+            # and g21 = g12^H
+            blk = blocks[bidx]
+            blk["perm"] = blk["perm"][:1, :1].expand(ne, nb, ns_c)
+            blk["g21"] = blk["g12"].mH
+        if pending.get(bidx):
+            updates[bidx] = [o[5].view(ne, o[0], us_c, us_c)
+                             for o in out]
+        del out
     blocks[-1] = {"n_flag": n_flag}
     return blocks
 
@@ -770,33 +803,34 @@ def factor(mat, symbolic: MFSymbolic, kind: str = "lu",
     The factor blocks come back gathered on the first shard's device, in
     the layout every solve and query takes.  On the CPU they are bitwise
     the unsharded factorization's."""
-    mat = trim(mat.tocsr())
-    n = symbolic.n
-    if mat.shape != (n, n):
-        raise ValueError("factor: matrix shape does not match symbolic")
-    if _pattern_key(mat) != symbolic.pattern_key:
-        raise ValueError(
-            "factor: matrix pattern does not match the symbolic analysis "
-            "(analyze once per pattern, factor per value set)"
-        )
-    a_data = mat.data
-    devices = None
-    if mesh is not None:
-        devices = mesh.shards(batch_axis or mesh.axis_names[0])
-        a_data = a_data.to(devices[0])
-    dm = _device_maps(symbolic, a_data.device)
-    parts = None if devices is None else _mesh_parts(symbolic, dm, devices)
-    rscale = None
-    if scale != "none":
-        a_data, rscale = _equilibrate(a_data, symbolic, dm, kind, scale)
-    peps = float(pivot_eps) if pivot_eps else 0.0
-    with _full_f32():
-        blocks = _factor_run(symbolic, dm, a_data[None], kind, peps, parts)
-    blocks = {k: {name: t[0] for name, t in blk.items()}
-              for k, blk in blocks.items()}
-    if rscale is not None:
-        blocks[-2] = {"rscale": rscale}  # scaling pseudo-bucket
-    return MFFactors(symbolic, blocks, a_data.dtype, kind=kind)
+    with annotate("slt.mf.factor"):
+        mat = trim(mat.tocsr())
+        n = symbolic.n
+        if mat.shape != (n, n):
+            raise ValueError("factor: matrix shape does not match symbolic")
+        if _pattern_key(mat) != symbolic.pattern_key:
+            raise ValueError(
+                "factor: matrix pattern does not match the symbolic analysis "
+                "(analyze once per pattern, factor per value set)"
+            )
+        a_data = mat.data
+        devices = None
+        if mesh is not None:
+            devices = mesh.shards(batch_axis or mesh.axis_names[0])
+            a_data = a_data.to(devices[0])
+        dm = _device_maps(symbolic, a_data.device)
+        parts = None if devices is None else _mesh_parts(symbolic, dm, devices)
+        rscale = None
+        if scale != "none":
+            a_data, rscale = _equilibrate(a_data, symbolic, dm, kind, scale)
+        peps = float(pivot_eps) if pivot_eps else 0.0
+        with _full_f32():
+            blocks = _factor_run(symbolic, dm, a_data[None], kind, peps, parts)
+        blocks = {k: {name: t[0] for name, t in blk.items()}
+                  for k, blk in blocks.items()}
+        if rscale is not None:
+            blocks[-2] = {"rscale": rscale}  # scaling pseudo-bucket
+        return MFFactors(symbolic, blocks, a_data.dtype, kind=kind)
 
 
 def factor_batched(data_stack, symbolic: MFSymbolic,
@@ -807,22 +841,23 @@ def factor_batched(data_stack, symbolic: MFSymbolic,
     z_k B - A).  The ne sets fold into each bucket's batch dimension, so
     every bucket is still one call per step.  A host array goes to
     ``device`` (by default the card); a tensor keeps its device."""
-    if not isinstance(data_stack, torch.Tensor):
-        data_stack = torch.as_tensor(np.asarray(data_stack),
-                                     device=default_device(device))
-    if data_stack.ndim != 2:
-        raise ValueError("factor_batched: expected (ne, nnz) data stack")
-    dm = _device_maps(symbolic, data_stack.device)
-    rscale = None
-    if scale != "none":
-        data_stack, rscale = _equilibrate(data_stack, symbolic, dm, kind,
-                                          scale)
-    with _full_f32():
-        blocks = _factor_run(symbolic, dm, data_stack, kind, 0.0)
-    if rscale is not None:
-        blocks[-2] = {"rscale": rscale}  # (ne, n) per-set scaling
-    return MFFactors(symbolic, blocks, data_stack.dtype, kind=kind,
-                     batch=int(data_stack.shape[0]))
+    with annotate("slt.mf.factor"):
+        if not isinstance(data_stack, torch.Tensor):
+            data_stack = torch.as_tensor(np.asarray(data_stack),
+                                         device=default_device(device))
+        if data_stack.ndim != 2:
+            raise ValueError("factor_batched: expected (ne, nnz) data stack")
+        dm = _device_maps(symbolic, data_stack.device)
+        rscale = None
+        if scale != "none":
+            data_stack, rscale = _equilibrate(data_stack, symbolic, dm, kind,
+                                              scale)
+        with _full_f32():
+            blocks = _factor_run(symbolic, dm, data_stack, kind, 0.0)
+        if rscale is not None:
+            blocks[-2] = {"rscale": rscale}  # (ne, n) per-set scaling
+        return MFFactors(symbolic, blocks, data_stack.dtype, kind=kind,
+                         batch=int(data_stack.shape[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -887,8 +922,9 @@ def _solve_run(factors: MFFactors, b, trans: bool, phase: str = "both"):
         y.index_add_(1, rows.view(-1), v.reshape(ne, -1, k))
 
     tri = torch.linalg.solve_triangular
-    up_levels = [bi for lvl in level_buckets for bi in lvl]
-    down_levels = [bi for lvl in reversed(level_buckets) for bi in lvl]
+    span = "slt.mf.solve.level"
+    up_levels = _by_level(level_buckets, span, False, "forward")
+    down_levels = _by_level(level_buckets, span, True, "backward")
     if not trans:
         # forward: z_s = L^{-1} P y_piv ; y_upd -= G21 z_s
         for bidx in up_levels if do_fwd else ():
@@ -958,30 +994,32 @@ def solve(factors: MFFactors, b, trans: bool = False):
     """Solve A x = b (or A^H x = b with ``trans``) with the multifrontal
     factors (reference ``linearSolve_`` modes, Umfpack.hs:85-102).
     ``b``: (n,) or (n, k); the RHS batch is one pass over the buckets."""
-    if factors.batch is not None:
-        raise ValueError("solve: batched factors — use solve_batched")
-    b, squeeze = _as_rhs(factors, b, "solve")
-    with _full_f32():
-        x = _solve_run(factors, b.to(_solve_dtype(factors, b))[None],
-                       bool(trans))[0]
-    return x[:, 0] if squeeze else x
+    with annotate("slt.mf.solve"):
+        if factors.batch is not None:
+            raise ValueError("solve: batched factors — use solve_batched")
+        b, squeeze = _as_rhs(factors, b, "solve")
+        with _full_f32():
+            x = _solve_run(factors, b.to(_solve_dtype(factors, b))[None],
+                           bool(trans))[0]
+        return x[:, 0] if squeeze else x
 
 
 def solve_batched(factors: MFFactors, b_stack, trans: bool = False):
     """Batched solves on batched factors: ``b_stack`` (ne, n, k) ->
     (ne, n, k)."""
-    if not isinstance(b_stack, torch.Tensor):
-        b_stack = torch.as_tensor(np.asarray(b_stack))
-    if factors.batch is not None:
-        b_stack = b_stack.to(factors.device)
-    if b_stack.ndim != 3 or b_stack.shape[0] != (factors.batch or -1):
-        raise ValueError(
-            f"solve_batched: expected ({factors.batch or '?'}, n, k) rhs "
-            "stack")
-    with _full_f32():
-        return _solve_run(factors,
-                          b_stack.to(_solve_dtype(factors, b_stack)),
-                          bool(trans))
+    with annotate("slt.mf.solve"):
+        if not isinstance(b_stack, torch.Tensor):
+            b_stack = torch.as_tensor(np.asarray(b_stack))
+        if factors.batch is not None:
+            b_stack = b_stack.to(factors.device)
+        if b_stack.ndim != 3 or b_stack.shape[0] != (factors.batch or -1):
+            raise ValueError(
+                f"solve_batched: expected ({factors.batch or '?'}, n, k) rhs "
+                "stack")
+        with _full_f32():
+            return _solve_run(factors,
+                              b_stack.to(_solve_dtype(factors, b_stack)),
+                              bool(trans))
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,11 @@ three names, over ``torch.profiler`` in place of ``jax.profiler``:
   activity, and the card's kernels when CUDA is initialised, written as
   one Chrome / Perfetto trace file into ``log_dir`` (TensorBoard's
   ``*.pt.trace.json`` naming).
-* :func:`annotate` — a named span: ``torch.profiler.record_function``,
-  plus an NVTX range when CUDA is initialised, so the span shows in
-  Nsight too.
+* :func:`annotate` — a named span: ``torch.profiler.record_function``
+  while a profiler runs, nothing otherwise.  The profiler's own state is
+  the switch: with none running a span costs one check of it.  Under
+  ``torch.autograd.profiler.emit_nvtx()`` every span is an NVTX range, so
+  it shows in Nsight too.
 * :func:`op_timings` — wall-clock timing of a callable, first call and
   steady state apart, synchronised on the card.
 """
@@ -40,18 +42,22 @@ def trace(log_dir: str):
         yield prof
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named span for trace viewers: ``with annotate("factor:level3"): ...``"""
-    with torch.profiler.record_function(name):
-        if not torch.cuda.is_initialized():
-            yield
-            return
-        torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            torch.cuda.nvtx.range_pop()
+_OFF = contextlib.nullcontext()
+
+
+def annotate(name: str, args=None):
+    """Named span for trace viewers: ``with annotate("slt.mf.factor.level",
+    lvl): ...``.  ``name`` is a constant; what varies goes in ``args`` (a
+    value, or a tuple of values joined by spaces), formatted only while a
+    profiler runs.  With none running (``torch.autograd._profiler_enabled``
+    false) the span is a shared no-op context: no ``record_function``, no
+    string formatting."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    if args is not None:
+        args = (" ".join(map(str, args)) if isinstance(args, tuple)
+                else str(args))
+    return torch.profiler.record_function(name, args)
 
 
 def _wait() -> None:
