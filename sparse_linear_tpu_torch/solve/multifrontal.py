@@ -22,7 +22,10 @@ Umfpack.hs:38-102).
   the same calls.
 * Spans (``utils.profiling.annotate``): ``slt.mf.analyze`` and its five
   stages, ``slt.mf.factor`` with ``slt.mf.factor.level`` a tree level,
-  ``slt.mf.solve`` with ``slt.mf.solve.level`` a level of each pass.
+  ``slt.mf.solve`` with ``slt.mf.solve.level`` a level of each pass; on
+  the replay path (below) ``slt.mf.capture`` around a capture and
+  ``slt.mf.factor.replay`` / ``slt.mf.solve.replay`` around a replay, which
+  open no level span.
 
 Front layout (per supernode, padded to its bucket's classes):
 
@@ -61,11 +64,40 @@ What differs from the JAX package, and why:
 * ``factor(mesh=)`` splits each bucket's fronts over a mesh of shards from
   one process (``dist/``), where the JAX package lets XLA shard the batch
   axis and insert the extend-add collectives.
+* Replay.  One pattern refactored with new values launches the same ~4,000
+  small kernels every time (2,843 a factor, 1,223 a solve at 1M dof), and
+  the card waits on the Python that launches them.  So ``factor(mat,
+  symbolic, kind="cholesky")`` on a CUDA tensor with no mesh runs eagerly
+  the first time for a (device, dtype, scale), and the second time
+  captures its level loop as a CUDA graph (``torch.cuda.graphs``' recipe:
+  one eager pass on a side stream, then the capture) and replays it, as
+  every later call does: a one-shot factor, or a new pattern a call, pays
+  nothing for a graph.  ``solve(factors, b)`` (not ``trans``) on the
+  factors of the latest replay captures its graph when it repeats the
+  previous solve's RHS (width, dtype) and replays it while the width
+  repeats; a plan keeps one solve graph, the latest width's, and solves
+  other widths eagerly on the same blocks.  The kernels, their order and
+  their arithmetic are the eager path's.  The plan (:class:`_Plan`) is
+  cached on the symbolic and holds a static value buffer, the graphs and
+  their memory pools (about the eager factor's peak, freed with the
+  symbolic), and the static output blocks, which each replay rewrites.
+  Ownership: the factors a replay returns hold those blocks and are
+  tracked by a weakref; if they are still referenced at the next replay,
+  their blocks are copied first (a detach) and they solve eagerly from
+  then on.  A replayed solve and ``row_scale`` return copies; a tensor
+  taken out of ``blocks`` directly is the plan's until the detach (``to``
+  copies it).  A lock serialises a plan's factors and solves, so threads
+  that share a symbolic take turns.  Everything else runs eagerly as
+  before: LU (FEAST's contour), ``factor_batched``/``solve_batched``,
+  ``solve_part``, ``trans`` solves, the mesh path and CPU tensors.
+  ``replay_counts()`` reads the path's counters.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
+import weakref
 
 import numpy as np
 import torch
@@ -77,7 +109,7 @@ from sparse_linear_tpu_torch.utils.profiling import annotate
 
 __all__ = ["analyze", "factor", "factor_batched", "solve", "solve_batched",
            "solve_part", "slogdet", "rcond", "get_factors", "lunz",
-           "MFSymbolic", "MFFactors"]
+           "replay_counts", "MFSymbolic", "MFFactors"]
 
 
 def _class_of(x: int, lo: int = 8) -> int:
@@ -111,7 +143,8 @@ class MFSymbolic:
 
     Host object of numpy arrays, reused across numeric factorizations with
     the same pattern; its device index maps are built once per device
-    (``_device_maps``)."""
+    (``_device_maps``), its replay plans once per (device, dtype, scale)
+    (:class:`_Plan`)."""
 
     backend = "multifrontal"
 
@@ -124,6 +157,7 @@ class MFSymbolic:
         self.pattern_key = pattern_key  # (nnz, hash) for cheap validation
         self.a_entry_maps = a_entry_maps  # per-bucket A-entry scatter arrays
         self._dev_maps = {}
+        self._plans = {}
 
 
 class MFFactors:
@@ -144,22 +178,31 @@ class MFFactors:
         self.dtype = dtype
         self.kind = kind  # "lu" (restricted partial pivoting) | "cholesky"
         self.batch = batch
+        self._plan = None  # the _Plan whose static blocks these are
 
     @property
     def device(self) -> torch.device:
         return self.blocks[-1]["n_flag"].device
 
-    def to(self, device) -> "MFFactors":
-        """The same factors on ``device``."""
-        blocks = {k: {name: t.to(device) for name, t in blk.items()
+    def _mapped(self, fn) -> dict:
+        """The blocks with ``fn`` applied to each stored tensor; a
+        Cholesky g21 stays the view g12^H."""
+        blocks = {k: {name: fn(t) for name, t in blk.items()
                       if not (self.kind == "cholesky" and name == "g21")}
                   for k, blk in self.blocks.items()}
         if self.kind == "cholesky":
             for k, blk in blocks.items():
                 if k >= 0:
                     blk["g21"] = blk["g12"].mH
-        return MFFactors(self.symbolic, blocks, self.dtype, self.kind,
-                         self.batch)
+        return blocks
+
+    def to(self, device) -> "MFFactors":
+        """The same factors on ``device``; a replay's static blocks are
+        copied even to their own device, so the result owns its blocks."""
+        copy = self._plan is not None
+        return MFFactors(self.symbolic,
+                         self._mapped(lambda t: t.to(device, copy=copy)),
+                         self.dtype, self.kind, self.batch)
 
     @property
     def n_flagged(self) -> int:
@@ -181,7 +224,10 @@ class MFFactors:
         """Equilibration vector (UMFPACK's R) when factored with ``scale=``,
         else None; original row coordinates."""
         sc = self.blocks.get(-2)
-        return None if sc is None else sc["rscale"]
+        if sc is None:
+            return None
+        # a replay's vector is rewritten by the plan's next factor
+        return sc["rscale"] if self._plan is None else sc["rscale"].clone()
 
 
 # ---------------------------------------------------------------------------
@@ -814,23 +860,38 @@ def factor(mat, symbolic: MFSymbolic, kind: str = "lu",
                 "(analyze once per pattern, factor per value set)"
             )
         a_data = mat.data
+        if mesh is None and kind == "cholesky" and _captures(a_data.device):
+            key = (str(a_data.device), a_data.dtype, scale)
+            if key in symbolic._plans:
+                return symbolic._plans[key].factor(symbolic, a_data)
+            # the first factor of a key runs eagerly; the second captures
+            symbolic._plans[key] = _Plan(scale)
         devices = None
         if mesh is not None:
             devices = mesh.shards(batch_axis or mesh.axis_names[0])
             a_data = a_data.to(devices[0])
         dm = _device_maps(symbolic, a_data.device)
         parts = None if devices is None else _mesh_parts(symbolic, dm, devices)
-        rscale = None
-        if scale != "none":
-            a_data, rscale = _equilibrate(a_data, symbolic, dm, kind, scale)
         peps = float(pivot_eps) if pivot_eps else 0.0
-        with _full_f32():
-            blocks = _factor_run(symbolic, dm, a_data[None], kind, peps, parts)
-        blocks = {k: {name: t[0] for name, t in blk.items()}
-                  for k, blk in blocks.items()}
-        if rscale is not None:
-            blocks[-2] = {"rscale": rscale}  # scaling pseudo-bucket
+        blocks = _factor_blocks(symbolic, dm, a_data, kind, scale, peps, parts)
         return MFFactors(symbolic, blocks, a_data.dtype, kind=kind)
+
+
+def _factor_blocks(symbolic: MFSymbolic, dm, a_data, kind: str, scale: str,
+                   pivot_eps: float = 0.0, parts=None) -> dict:
+    """The blocks of one value-set ``a_data`` (nnz,): equilibration, the
+    level loop, the value-set axis dropped."""
+    rscale = None
+    if scale != "none":
+        a_data, rscale = _equilibrate(a_data, symbolic, dm, kind, scale)
+    with _full_f32():
+        blocks = _factor_run(symbolic, dm, a_data[None], kind, pivot_eps,
+                             parts)
+    blocks = {k: {name: t[0] for name, t in blk.items()}
+              for k, blk in blocks.items()}
+    if rscale is not None:
+        blocks[-2] = {"rscale": rscale}  # scaling pseudo-bucket
+    return blocks
 
 
 def factor_batched(data_stack, symbolic: MFSymbolic,
@@ -998,10 +1059,19 @@ def solve(factors: MFFactors, b, trans: bool = False):
         if factors.batch is not None:
             raise ValueError("solve: batched factors — use solve_batched")
         b, squeeze = _as_rhs(factors, b, "solve")
-        with _full_f32():
-            x = _solve_run(factors, b.to(_solve_dtype(factors, b))[None],
-                           bool(trans))[0]
+        b = b.to(_solve_dtype(factors, b))
+        plan = factors._plan
+        if plan is not None and not trans:
+            x = plan.solve(factors, b)
+        else:
+            x = _solve_one(factors, b, bool(trans))
         return x[:, 0] if squeeze else x
+
+
+def _solve_one(factors: MFFactors, b, trans: bool):
+    """The full solve of ``b`` (n, k), in ``b``'s dtype."""
+    with _full_f32():
+        return _solve_run(factors, b[None], trans)[0]
 
 
 def solve_batched(factors: MFFactors, b_stack, trans: bool = False):
@@ -1020,6 +1090,130 @@ def solve_batched(factors: MFFactors, b_stack, trans: bool = False):
             return _solve_run(factors,
                               b_stack.to(_solve_dtype(factors, b_stack)),
                               bool(trans))
+
+
+# ---------------------------------------------------------------------------
+# replay: a pattern's Cholesky factor and solves as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _cuda_graph(run, device):
+    """Capture ``run()`` on ``device`` as a CUDA graph, as
+    ``torch.cuda.graphs`` advises: one eager pass on a side stream first
+    (cuBLAS workspaces and the allocator's blocks for that stream exist
+    before the capture), then the capture on the same stream into the
+    graph's own memory pool.  Returns (the captured call's outputs, the
+    graph's replay)."""
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = run()
+    return out, graph.replay
+
+
+def _captures(device) -> bool:
+    """Whether the replay path engages on ``device``: CUDA only."""
+    return device.type == "cuda"
+
+
+_COUNTS = dict.fromkeys(("captures", "solve_captures", "factor_replays",
+                         "solve_replays", "detaches"), 0)
+
+
+def replay_counts() -> dict:
+    """The replay path's counters since the process started: ``captures``
+    (factor graphs, one a plan), ``solve_captures`` (one each time a plan
+    records a solve for a new RHS width or dtype), ``factor_replays`` and
+    ``solve_replays`` (one a call on the path, the capturing call's
+    included), ``detaches`` (factors whose blocks were copied before a
+    replay overwrote them)."""
+    return dict(_COUNTS)
+
+
+class _Plan:
+    """One symbolic's Cholesky factor for a (device, dtype, scale),
+    captured at its second call and replayed for each later value set, and
+    one solve on its outputs, captured for the latest RHS (width, dtype)
+    that repeated.
+
+    ``a`` is the static value buffer the factor graph reads; ``blocks`` the
+    static outputs every replay rewrites.  ``holder`` is a weakref to the
+    MFFactors last handed those blocks.  ``lock`` keeps one thread at a
+    time between a value set's copy in and its factors' detach.  The plan
+    holds no reference to its symbolic, which holds it: dropping the
+    symbolic frees the graphs and their pools at once."""
+
+    def __init__(self, scale: str):
+        self.scale = scale
+        self.lock = threading.Lock()
+        self.a = self.blocks = self.replay = None  # set by the capture
+        self.holder = None
+        self.last_solve = None  # (k, dtype) of the previous solve
+        self.solve_graph = None  # ((k, dtype), static b, static x, replay)
+
+    def factor(self, symbolic: MFSymbolic, a_data) -> MFFactors:
+        """Replay on ``a_data``, capturing first if no graph is recorded;
+        the factors of the previous replay, if still referenced, first get
+        copies of their blocks."""
+        with self.lock:
+            held = self.holder and self.holder()
+            if held is not None:
+                held.blocks = held._mapped(torch.clone)
+                held._plan = None
+                _COUNTS["detaches"] += 1
+            if self.replay is None:
+                self.a = a_data.clone()
+                dm = _device_maps(symbolic, a_data.device)
+                with annotate("slt.mf.capture"):
+                    self.blocks, self.replay = _cuda_graph(
+                        lambda: _factor_blocks(symbolic, dm, self.a,
+                                               "cholesky", self.scale),
+                        a_data.device)
+                _COUNTS["captures"] += 1
+            else:
+                self.a.copy_(a_data)
+            with annotate("slt.mf.factor.replay"):
+                self.replay()
+            _COUNTS["factor_replays"] += 1
+            out = MFFactors(symbolic, {k: dict(blk) for k, blk in
+                                       self.blocks.items()}, a_data.dtype,
+                            "cholesky")
+            out._plan = self
+            self.holder = weakref.ref(out)
+            return out
+
+    def solve(self, factors: MFFactors, b):
+        """x (n, k) for ``b`` (n, k) in the solve's dtype, as a tensor the
+        caller owns: replayed on ``factors`` if they are still the latest
+        replay's and the width repeats, eagerly otherwise."""
+        key = (b.shape[1], b.dtype)
+        with self.lock:
+            if factors._plan is not self:  # detached since the check
+                return _solve_one(factors, b, False)
+            repeat, self.last_solve = key == self.last_solve, key
+            if self.solve_graph is None or self.solve_graph[0] != key:
+                if not repeat:
+                    return _solve_one(factors, b, False)
+                self.solve_graph = None  # the previous width's pool goes
+                static_b = b.clone()
+                view = MFFactors(factors.symbolic, self.blocks,
+                                 factors.dtype, "cholesky")
+                with annotate("slt.mf.capture"):
+                    x, replay = _cuda_graph(
+                        lambda: _solve_one(view, static_b, False), b.device)
+                _COUNTS["solve_captures"] += 1
+                self.solve_graph = (key, static_b, x, replay)
+            _, static_b, x, replay = self.solve_graph
+            static_b.copy_(b)
+            with annotate("slt.mf.solve.replay"):
+                replay()
+            _COUNTS["solve_replays"] += 1
+            return x.clone()
 
 
 # ---------------------------------------------------------------------------

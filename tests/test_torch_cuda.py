@@ -4,8 +4,9 @@ SpMM, both layouts, every column bitwise kernel A) and kernels C and D
 (WELL SpMV and SpMM), real and complex (complex64 / complex128, and a real
 operator times a complex x); the multifrontal direct solver on CUDA tensors
 against the port on the CPU (f64/c128 within 1e-12, f32/c64 within 1e-5),
-every block and solution on the card; and FEAST on the card against the
-analytic spectrum.
+every block and solution on the card, and its Cholesky factor and solve
+replayed as CUDA graphs against the eager path; and FEAST on the card
+against the analytic spectrum.
 
 Every test here needs an NVIDIA GPU and nvcc: it is marked ``cuda`` and
 skips without a card.  This file imports no JAX, so it also runs where JAX
@@ -19,6 +20,9 @@ version does; only fused multiply-adds may round differently.  The WELL
 plain versions sum with ``index_add_``, whose order on CUDA is unspecified,
 so their parity is to rounding.
 """
+
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -1017,6 +1021,207 @@ def test_direct_refined_on_card(dev):
         x, info = api.solve_refined(f, a64, b, tol=1e-10, max_iter=4)
         assert x.device.type == "cuda" and info.converged
         assert float(api.residual_norm(a64, x, b)) <= 1e-10
+
+
+# ------------------------------- the direct solver's replay (CUDA graphs)
+
+
+def _field(g, seed, dev):
+    """The g**2 five-point pattern with the values of a lognormal
+    conductivity (off-diagonal -harmonic mean of the two nodes' kappa,
+    diagonal the row's faces plus kappa: SPD), f64 CSR on ``dev``."""
+    a = poisson_2d(g, dtype=torch.float64, device="cpu")
+    rows, cols = a.row_ids().numpy(), a.indices.numpy()
+    kappa = np.exp(np.random.default_rng(seed).standard_normal(g * g))
+    kr, kc = kappa[rows], kappa[cols]
+    vals = np.where(rows != cols, -2 * kr * kc / (kr + kc), 0.0)
+    diag = kappa - np.bincount(rows, weights=vals, minlength=g * g)
+    vals = np.where(rows == cols, diag[rows], vals)
+    return st.from_triples((g * g, g * g), rows, cols, torch.as_tensor(vals),
+                           device="cpu").tocsr().to(dev)
+
+
+def _counts_since(before):
+    from sparse_linear_tpu_torch.solve import multifrontal as mf
+
+    now = mf.replay_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _direct_resid(a, x, b):
+    from sparse_linear_tpu_torch.solve import api
+
+    return float(api.residual_norm(a, x, b))
+
+
+@pytest.mark.parametrize("g", [64, 128])
+def test_replayed_cholesky_matches_the_eager_path(dev, g):
+    """Replayed factor blocks and solves against the eager path (the
+    batched factor of the same value set) within 1e-12: the extend-add's
+    atomics rule out bitwise equality.  The first factor and the first
+    solve on a replay's factors run eagerly, the second of each captures,
+    then one replay a call."""
+    from sparse_linear_tpu_torch.solve import multifrontal as mf
+
+    sym = mf.analyze(_field(g, 0, "cpu"), dims=(g, g))
+    before = mf.replay_counts()
+    for i, seed in enumerate((1, 2, 3, 4)):
+        a = _field(g, seed, dev)
+        b = torch.randn((g * g, 2), dtype=torch.float64, device=dev)
+        f = mf.factor(a, sym, kind="cholesky")
+        assert (f._plan is None) == (i == 0)
+        x = mf.solve(f, b)
+        fb = mf.factor_batched(a.data[None], sym, kind="cholesky")
+        xb = mf.solve_batched(fb, b[None])[0]
+        torch.cuda.synchronize()
+        for bidx, blk in f.blocks.items():
+            for name, t in blk.items():
+                assert t.device.type == "cuda"
+                assert _rel(t, fb.blocks[bidx][name][0]) <= 1e-12
+        assert not f.breakdown
+        assert _rel(x, xb) <= 1e-12
+        assert _direct_resid(a, x, b) <= 1e-12
+        del f
+    assert _counts_since(before) == {
+        "captures": 1, "solve_captures": 1, "factor_replays": 3,
+        "solve_replays": 2, "detaches": 0}
+
+
+def test_replay_detaches_kept_factors_and_keeps_solutions(dev):
+    """Factors kept across the next factor still solve their own system
+    (one detach); an x kept from one solve is unchanged by the next."""
+    from sparse_linear_tpu_torch.solve import multifrontal as mf
+
+    g = 64
+    sym = mf.analyze(_field(g, 0, "cpu"), dims=(g, g))
+    a1, a2 = _field(g, 1, dev), _field(g, 2, dev)
+    b = torch.randn(g * g, dtype=torch.float64, device=dev)
+    mf.factor(a1, sym, kind="cholesky")  # the key's first: eager
+    before = mf.replay_counts()
+    f1 = mf.factor(a1, sym, kind="cholesky")
+    mf.solve(f1, b)  # the first solve on a replay's factors: eager
+    x1 = mf.solve(f1, b)  # captured and replayed
+    kept = x1.clone()
+    f2 = mf.factor(a2, sym, kind="cholesky")
+    assert _counts_since(before)["detaches"] == 1
+    assert f1._plan is None and f2._plan is not None
+    y1, y2 = mf.solve(f1, b), mf.solve(f2, b)
+    torch.cuda.synchronize()
+    assert _direct_resid(a1, y1, b) <= 1e-12
+    assert _direct_resid(a2, y2, b) <= 1e-12
+    assert _rel(y1, x1) <= 1e-12
+    assert torch.equal(x1, kept)
+    d = _counts_since(before)
+    assert d["factor_replays"] == 2 and d["solve_replays"] == 2
+    assert d["solve_captures"] == 1 and d["detaches"] == 1
+    # no reference cycle: dropping the symbolic and its factors frees the
+    # plan, its graphs and their pools without the collector
+    plan = weakref.ref(f2._plan)
+    gc.disable()
+    try:
+        del f1, f2, sym
+        assert plan() is None
+    finally:
+        gc.enable()
+
+
+def test_replay_leaves_lu_and_batched_alone_and_rejects_a_changed_pattern(
+        dev):
+    from sparse_linear_tpu_torch.solve import multifrontal as mf
+
+    g = 64
+    sym = mf.analyze(_field(g, 0, "cpu"), dims=(g, g))
+    a = _field(g, 1, dev)
+    b = torch.randn(g * g, dtype=torch.float64, device=dev)
+    before = mf.replay_counts()
+    mf.solve(mf.factor(a, sym, kind="lu"), b)
+    fb = mf.factor_batched(torch.stack([a.data, a.data]), sym,
+                           kind="cholesky")
+    mf.solve_batched(fb, torch.stack([b, b])[..., None])
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in _counts_since(before).values())
+    assert sym._plans == {}
+    mf.factor(a, sym, kind="cholesky")
+    with pytest.raises(ValueError, match="does not match"):
+        mf.factor(poisson_2d(g, g + 1, dtype=torch.float64, device=dev),
+                  sym, kind="cholesky")
+    cut = a.to("cpu")
+    cut = st.from_triples(cut.shape, cut.row_ids().numpy()[:-1],
+                          cut.indices.numpy()[:-1], cut.data[:-1],
+                          device="cpu").tocsr().to(dev)
+    with pytest.raises(ValueError, match="pattern does not match"):
+        mf.factor(cut, sym, kind="cholesky")
+
+
+def test_replay_keeps_one_solve_graph_and_the_callers_row_scale(dev):
+    """Solves at k = 1 and k = 80 on one replay's factors: a width is
+    recorded when it repeats, the plan keeps the latest recorded width's
+    graph only (the dropped one's pool is released), and every x matches
+    the eager solve.  A row_scale taken from a replay (scale="sum") is
+    unchanged by the next factor; a one-shot factor records nothing."""
+    from sparse_linear_tpu_torch.solve import multifrontal as mf
+
+    g = 64
+    sym = mf.analyze(_field(g, 0, "cpu"), dims=(g, g))
+    a1, a2 = _field(g, 1, dev), _field(g, 2, dev)
+    before = mf.replay_counts()
+    f = mf.factor(a1, sym, kind="cholesky")
+    assert f._plan is None
+    mf.solve(f, torch.randn(g * g, dtype=torch.float64, device=dev))
+    assert all(v == 0 for v in _counts_since(before).values())
+    f = mf.factor(a1, sym, kind="cholesky")
+    plan, dropped = f._plan, []
+    fb = mf.factor_batched(a1.data[None], sym, kind="cholesky")
+    for k in (1, 1, 80, 1, 80, 80, 1, 1):
+        graph = plan.solve_graph
+        b = torch.randn((g * g, k), dtype=torch.float64, device=dev)
+        x = mf.solve(f, b)
+        assert _rel(x, mf.solve_batched(fb, b[None])[0]) <= 1e-12
+        if graph is not None and plan.solve_graph is not graph:
+            dropped.append(weakref.ref(graph[2]))
+    d = _counts_since(before)
+    assert d["solve_captures"] == 3 and d["solve_replays"] == 4
+    assert plan.solve_graph[0] == (1, torch.float64)
+    del graph
+    assert len(dropped) == 2 and all(r() is None for r in dropped)
+    del f, fb
+    for _ in range(2):
+        mf.factor(a1, sym, kind="cholesky", scale="sum")
+    f1 = mf.factor(a1, sym, kind="cholesky", scale="sum")
+    r1 = f1.row_scale
+    kept = r1.clone()
+    del f1
+    f2 = mf.factor(a2, sym, kind="cholesky", scale="sum")
+    torch.cuda.synchronize()
+    assert torch.equal(r1, kept)
+    assert not torch.equal(f2.row_scale, kept)
+
+
+def test_replay_opens_no_level_span(dev):
+    """Under a profiler a replayed factor and solve open their replay spans
+    and no level span (host events; the card mirrors each span as an
+    annotation of its own)."""
+    from sparse_linear_tpu_torch.solve import multifrontal as mf
+
+    g = 64
+    sym = mf.analyze(_field(g, 0, "cpu"), dims=(g, g))
+    a = _field(g, 1, dev)
+    b = torch.randn(g * g, dtype=torch.float64, device=dev)
+    for _ in range(3):  # eager; the factor's capture; the solve's
+        mf.solve(mf.factor(a, sym, kind="cholesky"), b)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        x = mf.solve(mf.factor(a, sym, kind="cholesky"), b)
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(
+        (e for e in prof.events() if e.name.startswith("slt.")
+         and e.device_type == torch.autograd.DeviceType.CPU),
+        key=lambda e: e.time_range.start)]
+    assert names == ["slt.mf.factor", "slt.mf.factor.replay",
+                     "slt.mf.solve", "slt.mf.solve.replay"]
+    assert _direct_resid(a, x, b) <= 1e-12
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
