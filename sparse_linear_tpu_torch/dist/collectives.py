@@ -20,11 +20,16 @@ current stream waits for the copy before any later launch there.  So a
 piece moves between a kernel that writes it and one that reads it with no
 host synchronisation.  One card cannot show this ordering (every shard
 shares one stream there); it holds by construction.
+
+``gather`` and ``psum`` are the spans ``slt.dist.gather`` and
+``slt.dist.psum`` (args: the destination device) in a trace.
 """
 
 from __future__ import annotations
 
 import torch
+
+from sparse_linear_tpu_torch.utils.profiling import annotate
 
 __all__ = ["fresh", "ppermute", "all_gather", "gather", "psum"]
 
@@ -52,9 +57,10 @@ def gather(pieces, device, dim: int = 0) -> torch.Tensor:
     """The pieces concatenated along ``dim`` in shard order on one
     ``device`` (the tiled all-gather as one shard sees it)."""
     device = torch.device(device)
-    if len(pieces) == 1:
-        return fresh(pieces[0], device)
-    return torch.cat([p.to(device) for p in pieces], dim=dim)
+    with annotate("slt.dist.gather", device):
+        if len(pieces) == 1:
+            return fresh(pieces[0], device)
+        return torch.cat([p.to(device) for p in pieces], dim=dim)
 
 
 def all_gather(pieces) -> list:
@@ -69,9 +75,10 @@ def psum(values, device) -> torch.Tensor:
     order, ``((v0 + v1) + v2) + ...``, so that the result does not depend
     on which shard finished first."""
     device = torch.device(device)
-    if len(values) == 1:
-        return fresh(values[0], device)
-    total = values[0].to(device) + values[1].to(device)
-    for v in values[2:]:
-        total += v.to(device)
-    return total
+    with annotate("slt.dist.psum", device):
+        if len(values) == 1:
+            return fresh(values[0], device)
+        total = values[0].to(device) + values[1].to(device)
+        for v in values[2:]:
+            total += v.to(device)
+        return total

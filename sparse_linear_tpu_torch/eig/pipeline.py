@@ -41,7 +41,11 @@ workaround, for real symmetric and complex Hermitian pencils alike:
    card's memory, and the quadrature sums are psum'd onto the subspace's
    device in shard order.  The pipeline (pattern, ``analyze``, operators)
    is shared by every mesh; a contour is cached per (nodes, mode, mesh
-   layout).  A mesh whose rows axis has more than one shard also
+   layout).  A sharded call also fills ``last_run["cards"]``, one entry a
+   card (its nodes and mode, its factor and filter seconds timed on its
+   own stream, its allocator's peak), and ``last_run["exchange_bytes"]``,
+   the bytes copied between cards (:class:`_CardClock`).  A mesh whose
+   rows axis has more than one shard also
    row-shards the subspace (the JAX package's ``P(rows_axis, None)``
    blocks): every (n, m0) block is a ``dist.sharded.ShardedBlock``, A and
    B are row-sharded once per rows layout (DIA slabs on kernel A's
@@ -70,6 +74,7 @@ strict (:func:`_ghost_converged`).
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -148,6 +153,49 @@ def _sync(device) -> None:
 
 def _host(t) -> np.ndarray:
     return t.detach().resolve_conj().cpu().numpy()
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _csr_bytes(mat) -> int:
+    return _nbytes(mat.indptr, mat.indices, mat.data)
+
+
+class _CardClock:
+    """One card's spans of a sharded contour, each the span
+    ``slt.feast.card`` (args: the card and the phase, "factor" or
+    "filter") and timed on the card's own stream: a CUDA event recorded
+    there before the span's first launch and one after its last (the host
+    clock on the CPU, where work is synchronous).  The events are read
+    only by :meth:`take`, once the pipeline has synchronised the work
+    behind them; a clock adds no host synchronisation."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.marks: dict = {"factor": [], "filter": []}
+
+    def _mark(self):
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    @contextlib.contextmanager
+    def span(self, phase: str):
+        with annotate("slt.feast.card", (self.device, phase)):
+            start = self._mark()
+            yield
+            self.marks[phase].append((start, self._mark()))
+
+    def take(self, phase: str) -> float:
+        """Seconds of the ``phase`` spans since the last take."""
+        pairs, self.marks[phase] = self.marks[phase], []
+        if self.device.type != "cuda":
+            return sum(b - a for a, b in pairs)
+        return sum(a.elapsed_time(b) for a, b in pairs) / 1e3
 
 
 class StructuredOp:
@@ -267,6 +315,8 @@ class _Pipeline:
         self.contours: dict = {}
         self.sites: dict = {}
         self.row_sets: dict = {}
+        # bytes copied between this pipeline's device and its sites' cards
+        self.exchanged = 0
 
     def row_ops(self, mesh) -> tuple:
         """(A, B) row-sharded over ``mesh["rows"]``, built once a layout."""
@@ -388,6 +438,18 @@ class _Pipeline:
                             data=self.values([zk])[0], shape=pat.shape)
             return api.factor(mat, self.symbolic)
 
+    def held_bytes(self) -> dict:
+        """{device: bytes of the cached factor sets held there}.  A method
+        of its own, so that no loop variable of :meth:`contour` keeps a
+        cached contour, and its factors, alive after the cache drops it to
+        make room for the next."""
+        fac = self.set_bytes()[0]
+        held: dict = {}
+        for cached in self.contours.values():
+            for dev, k in cached.stored_by_device().items():
+                held[dev] = held.get(dev, 0.0) + k * fac
+        return held
+
     def contour(self, z, sigma, m: int, batching: str,
                 shards=None, rows=()) -> "_Contour":
         """The contour's factors in the planned mode, cached per (nodes,
@@ -397,11 +459,7 @@ class _Pipeline:
         ``[(device, rows)]`` of a row-sharded subspace, for the byte
         plan."""
         zkey = hash(np.asarray(z).tobytes())
-        fac = self.set_bytes()[0]
-        held: dict = {}
-        for c in self.contours.values():
-            for dev, k in c.stored_by_device().items():
-                held[dev] = held.get(dev, 0.0) + k * fac
+        held = self.held_bytes()
         if shards is None:
             groups = [(self.device, np.arange(len(z)))]
             mode, why = self.plan(len(z), m, batching,
@@ -444,11 +502,14 @@ class _Site:
     def __init__(self, pipe: _Pipeline, device: torch.device):
         self.pipe, self.device = pipe, device
         self.pattern = pipe.pattern.to(device)
+        pipe.exchanged += _csr_bytes(pipe.pattern)
         self.symbolic = pipe.symbolic
         self._ops = None
 
     def values(self, z):
-        return self.pipe.values(z).to(self.device)
+        v = self.pipe.values(z)
+        self.pipe.exchanged += _nbytes(v)
+        return v.to(self.device)
 
     def factor(self, zk):
         return _Pipeline.factor(self, zk)
@@ -457,6 +518,8 @@ class _Site:
         if self._ops is None:
             self._ops = tuple(_structured_op(m.to(self.device))
                               for m in self.pipe.mats)
+            self.pipe.exchanged += sum(_csr_bytes(m.tocsr())
+                                       for m in self.pipe.mats)
         a_op, b_op = self._ops
         bs = s if b_op.route == "identity" else b_op(s)
         return rhs - zk * bs + a_op(s)
@@ -475,21 +538,51 @@ class _Contour:
         self.mode, self.why, self.shard_mode = mode, why, shard_mode
         # [(site, node indices, mode, factors)]
         self.groups = []
+        # under "sharded", each card's clock (:class:`_CardClock`)
+        self.clocks = {} if shard_mode is None else {
+            d: _CardClock(d) for d, _ in groups}
         t0 = time.perf_counter()
         for dev, idx in groups:
             site = pipe.site(dev)
             gmode = shard_mode or mode
             factors = None
-            if gmode == "batched":
-                with annotate("slt.feast.factor"):
-                    factors = api.factor_batched(site.pattern,
-                                                 site.values(z[idx]),
-                                                 pipe.symbolic)
-            elif gmode == "per-node":
-                factors = [site.factor(z[k]) for k in idx]
+            with self._card(site.device, "factor"):
+                if gmode == "batched":
+                    with annotate("slt.feast.factor"):
+                        factors = api.factor_batched(site.pattern,
+                                                     site.values(z[idx]),
+                                                     pipe.symbolic)
+                elif gmode == "per-node":
+                    factors = [site.factor(z[k]) for k in idx]
             self.groups.append((site, idx, gmode, factors))
         self._sync()
         self.factor_s = time.perf_counter() - t0
+
+    def _card(self, device, phase: str):
+        """The card's span of ``phase`` under "sharded", else nothing."""
+        if not self.clocks:
+            return contextlib.nullcontext()
+        return self.clocks[device].span(phase)
+
+    def take_cards(self) -> list:
+        """One entry a card of a sharded contour: its device, nodes and
+        mode, the seconds of its factor spans and of its filter spans
+        (summed over the loops; a streaming node's refactor is in both)
+        recorded since the last take, and its allocator's peak (bytes
+        since the caller last reset it; 0 on the CPU).  Call it once the
+        pipeline has synchronised the work of the call."""
+        out = []
+        for dev, clock in self.clocks.items():
+            out.append({
+                "device": str(dev),
+                "nodes": sum(len(g[1]) for g in self.groups
+                             if g[0].device == dev),
+                "mode": self.shard_mode,
+                "factor_s": clock.take("factor"),
+                "filter_s": clock.take("filter"),
+                "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                               if dev.type == "cuda" else 0)})
+        return out
 
     def _sync(self) -> None:
         for dev in dict.fromkeys(g[0].device for g in self.groups):
@@ -542,12 +635,21 @@ class _Contour:
         sums = []
         for site, idx, gmode, factors in self.groups:
             if site.device not in rhs:
-                rhs[site.device] = (
-                    gather(by.pieces, site.device)[:by.length].to(pipe.cdtype)
-                    if rows else by.to(site.device))
+                if rows:
+                    rhs[site.device] = gather(
+                        by.pieces, site.device)[:by.length].to(pipe.cdtype)
+                    pipe.exchanged += _nbytes(*(
+                        p for p in by.pieces if p.device != site.device))
+                else:
+                    rhs[site.device] = by.to(site.device)
+                    if site.device != dest:
+                        pipe.exchanged += _nbytes(by)
             q = torch.zeros(shape, dtype=pipe.wdtype, device=site.device)
-            self._group_sum(q, rhs[site.device], site, idx, gmode, factors,
-                            refine_n)
+            with self._card(site.device, "filter"):
+                self._group_sum(q, rhs[site.device], site, idx, gmode,
+                                factors, refine_n)
+            if site.device != dest:
+                pipe.exchanged += _nbytes(q)
             sums.append(q)
         del rhs
         q = sums[0] if len(sums) == 1 else psum(sums, dest)
@@ -582,7 +684,8 @@ class _Contour:
                 fac = factors[i]
             else:
                 t0 = time.perf_counter()
-                fac = site.factor(zk)
+                with self._card(site.device, "factor"):
+                    fac = site.factor(zk)
                 _sync(site.device)
                 self.factor_s += time.perf_counter() - t0
             for trans in passes:
@@ -755,6 +858,7 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
         row_sizes = [(d, -(-n // len(rows))) for d in row_mesh.shards("rows")]
     z, sigma = _contour(emin, emax, params.contour_points,
                         kind=params.quadrature)
+    exchanged = pipe.exchanged
     contour = pipe.contour(z, sigma, m0, params.contour_batching, shards,
                            row_sizes)
     refine_n = _refine_default(params, pipe)
@@ -893,6 +997,10 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
             stalls = 0
         eps_prev = min(eps_prev, epsout)
 
+    if contour.clocks:
+        # every card's work ended before the last loop's synchronised psum
+        last_run["cards"] = contour.take_cards()
+        last_run["exchange_bytes"] = pipe.exchanged - exchanged
     if len(lam_np) == m0:
         # every Ritz pair inside: the subspace is (or may be) too small to
         # hold the invariant subspace (Feast.hs:252-257)

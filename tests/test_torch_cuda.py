@@ -1353,3 +1353,37 @@ def test_row_sharded_feast_on_card(dev):
                                    atol=1e-12)
         np.testing.assert_allclose(res.values, lam[:20], rtol=1e-10)
         assert res.vectors.device.type == "cuda"
+
+
+def test_front_lu_runs_under_cusolver_and_restores_the_backend(dev,
+                                                                monkeypatch):
+    """The pivot blocks' LU goes to torch's cuSOLVER backend (getrf from
+    512 on, cuBLAS's batched getrf below; the default would take MAGMA's
+    batched getrf), and the caller's backend is restored, also when the
+    call raises; the factors of a 3D operator still solve it."""
+    from sparse_linear_tpu_torch.solve import multifrontal as mf
+
+    seen = []
+    real = torch.linalg.lu_factor_ex
+
+    def spy(a, *args, **kw):
+        seen.append(torch.backends.cuda.preferred_linalg_library())
+        return real(a, *args, **kw)
+
+    monkeypatch.setattr(torch.linalg, "lu_factor_ex", spy)
+    before = torch.backends.cuda.preferred_linalg_library()
+    blocks = torch.randn((3, 640, 640), dtype=torch.complex128, device=dev)
+    lu, piv, _ = mf._lu_factor(blocks)
+    p, low, up = torch.lu_unpack(lu, piv)
+    assert _rel(p @ low @ up, blocks) <= 1e-12
+    with pytest.raises(RuntimeError):
+        mf._lu_factor(torch.zeros(3, device=dev))
+    assert torch.backends.cuda.preferred_linalg_library() == before
+    g = 16
+    a = poisson_3d(g, dtype=torch.float64, device=dev)
+    sym = mf.analyze(a.to("cpu"), dims=(g, g, g))
+    seen.clear()
+    f = mf.factor(a, sym)
+    assert seen and all(str(s).endswith("Cusolver") for s in seen)
+    b = torch.randn(g ** 3, dtype=torch.float64, device=dev)
+    assert _direct_resid(a, mf.solve(f, b), b) <= 1e-12
