@@ -44,15 +44,19 @@ workaround, for real symmetric and complex Hermitian pencils alike:
    layout).  A sharded call also fills ``last_run["cards"]``, one entry a
    card (its nodes and mode, its factor and filter seconds timed on its
    own stream, its allocator's peak), and ``last_run["exchange_bytes"]``,
-   the bytes copied between cards (:class:`_CardClock`).  A mesh whose
-   rows axis has more than one shard also
-   row-shards the subspace (the JAX package's ``P(rows_axis, None)``
-   blocks): every (n, m0) block is a ``dist.sharded.ShardedBlock``, A and
-   B are row-sharded once per rows layout (DIA slabs on kernel A's
-   multi-RHS form with the halo exchange, WELL slabs on kernel D with the
-   column-window exchange: ``dist.spmv.spmm_sharded``), the right-hand
-   side B y is gathered onto each contour shard, and the psum'd quadrature
-   sum comes back split into the row pieces.
+   the bytes copied between cards (:class:`_CardClock`).  Where the
+   groups sit on more than one card, one host thread advances the cards'
+   factorizations and solves in turn, a bucket of launches each, once
+   every copy between cards is queued (:class:`_Contour`); every call's
+   ``last_run["interleaved"]`` counts the phases run so.  A mesh whose
+   rows axis has more than one shard also row-shards the subspace (the JAX
+   package's ``P(rows_axis, None)`` blocks): every (n, m0) block is a
+   ``dist.sharded.ShardedBlock``, A and B are row-sharded once per rows
+   layout (DIA slabs on kernel A's multi-RHS form with the halo exchange,
+   WELL slabs on kernel D with the column-window exchange:
+   ``dist.spmv.spmm_sharded``), the right-hand side B y is gathered onto
+   each contour shard, and the psum'd quadrature sum comes back split into
+   the row pieces.
 
 5. **Rayleigh-Ritz in plain f64/c128 matmuls** (``torch.matmul``): the
    whitening Gram q^H q, qw = q W, the reduced blocks qw^H (A qw) and
@@ -75,6 +79,7 @@ strict (:func:`_ghost_converged`).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import os
 import time
@@ -317,6 +322,9 @@ class _Pipeline:
         self.row_sets: dict = {}
         # bytes copied between this pipeline's device and its sites' cards
         self.exchanged = 0
+        # phases (a factorization, a filter) whose cards were launched in
+        # turn (:func:`_in_turn`)
+        self.interleaved = 0
 
     def row_ops(self, mesh) -> tuple:
         """(A, B) row-sharded over ``mesh["rows"]``, built once a layout."""
@@ -428,14 +436,15 @@ class _Pipeline:
 
     # -- factors -----------------------------------------------------------
 
-    def factor(self, zk):
-        """The factors of one node, in the span ``slt.feast.factor``."""
+    def factor(self, data):
+        """The factors of one node whose values ``data`` (nnz,) are on this
+        device, in the span ``slt.feast.factor``."""
         from sparse_linear_tpu_torch.solve import api
 
         with annotate("slt.feast.factor"):
             pat = self.pattern
             mat = type(pat)(indptr=pat.indptr, indices=pat.indices,
-                            data=self.values([zk])[0], shape=pat.shape)
+                            data=data, shape=pat.shape)
             return api.factor(mat, self.symbolic)
 
     def held_bytes(self) -> dict:
@@ -488,10 +497,15 @@ class _Pipeline:
         self.contours[key] = c
         return c
 
+    def operators(self) -> tuple:
+        """(A, B) as structured operators on this device."""
+        return self.a_op, self.b_op
+
     def residual(self, rhs, s, zk):
         """rhs - (zk B - A) s, through the structured operators."""
-        bs = s if self.b_op.route == "identity" else self.b_op(s)
-        return rhs - zk * bs + self.a_op(s)
+        a_op, b_op = self.operators()
+        bs = s if b_op.route == "identity" else b_op(s)
+        return rhs - zk * bs + a_op(s)
 
 
 class _Site:
@@ -511,24 +525,56 @@ class _Site:
         self.pipe.exchanged += _nbytes(v)
         return v.to(self.device)
 
-    def factor(self, zk):
-        return _Pipeline.factor(self, zk)
+    def factor(self, data):
+        return _Pipeline.factor(self, data)
 
-    def residual(self, rhs, s, zk):
+    def operators(self) -> tuple:
+        """(A, B) copied here and made structured operators, at first
+        use."""
         if self._ops is None:
             self._ops = tuple(_structured_op(m.to(self.device))
                               for m in self.pipe.mats)
             self.pipe.exchanged += sum(_csr_bytes(m.tocsr())
                                        for m in self.pipe.mats)
-        a_op, b_op = self._ops
-        bs = s if b_op.route == "identity" else b_op(s)
-        return rhs - zk * bs + a_op(s)
+        return self._ops
+
+    def residual(self, rhs, s, zk):
+        return _Pipeline.residual(self, rhs, s, zk)
+
+
+def _in_turn(steps: dict) -> None:
+    """Advance the steppers of ``steps`` ({card: generator}) one step each,
+    card after card, until every one has ended.  A step queues one
+    bucket's launches (a per-node group's: one node's) on its card, so the
+    host comes back to each card before its queue runs dry, and blocks on
+    a card's full queue only while the others hold queued work too."""
+    live = list(steps.values())
+    while live:
+        for stepper in tuple(live):
+            try:
+                next(stepper)
+            except StopIteration:
+                live.remove(stepper)
 
 
 class _Contour:
     """One contour's nodes, weights and factors in one mode: one group of
     nodes on the pipeline's device, or under "sharded" one group a shard,
-    each in ``shard_mode``."""
+    each in ``shard_mode``.
+
+    Sharded-contour dispatch.  A phase (the factorization, or one loop's
+    filter) first queues every copy between cards that it needs: each
+    group's node values (computed on the pipeline's device) before the
+    factorization, B y and each group's zeroed sum before the filter.
+    Then each card runs its groups as a stepper (:meth:`_launch`), and
+    where the groups sit on more than one card the cards' steppers are
+    advanced in turn (:func:`_in_turn`).  A copy on the source card's
+    stream waits there for all work queued before it (``dist/
+    collectives.py``), so a copy queued after a card's factor or solves
+    would hold every later card back behind them.  Each card runs the same
+    launches in the same order on its own stream as when the cards run one
+    after another, and the psum adds in shard order: the numbers are the
+    same, bit for bit."""
 
     def __init__(self, pipe: _Pipeline, z, sigma, mode: str, why: str,
                  groups, shard_mode=None):
@@ -536,27 +582,79 @@ class _Contour:
 
         self.pipe, self.z, self.sigma = pipe, z, sigma
         self.mode, self.why, self.shard_mode = mode, why, shard_mode
-        # [(site, node indices, mode, factors)]
-        self.groups = []
         # under "sharded", each card's clock (:class:`_CardClock`)
         self.clocks = {} if shard_mode is None else {
             d: _CardClock(d) for d, _ in groups}
+        gmode = shard_mode or mode
         t0 = time.perf_counter()
-        for dev, idx in groups:
-            site = pipe.site(dev)
-            gmode = shard_mode or mode
-            factors = None
+        sites = [pipe.site(dev) for dev, _ in groups]
+        # where the cards run in turn, every group's node values are on its
+        # card before any card's first launch; else each group's (a
+        # per-node group's: each node's) are made when its turn comes
+        stacks = None
+        if self._interleaves(sites):
+            values = pipe.values(z)
+            stacks = []
+            for site, (_, idx) in zip(sites, groups):
+                lo = int(idx[0]) if len(idx) else 0
+                stacks.append(values[lo:lo + len(idx)])
+                if site is not pipe:
+                    pipe.exchanged += _nbytes(stacks[-1])
+                    stacks[-1] = stacks[-1].to(site.device)
+            del values
+        factors = [None] * len(groups)
+
+        def steps(i):
+            site, idx = sites[i], groups[i][1]
             with self._card(site.device, "factor"):
                 if gmode == "batched":
+                    data = site.values(z[idx]) if stacks is None else stacks[i]
                     with annotate("slt.feast.factor"):
-                        factors = api.factor_batched(site.pattern,
-                                                     site.values(z[idx]),
-                                                     pipe.symbolic)
+                        factors[i] = yield from api.factor_batched_steps(
+                            site.pattern, data, pipe.symbolic)
                 elif gmode == "per-node":
-                    factors = [site.factor(z[k]) for k in idx]
-            self.groups.append((site, idx, gmode, factors))
+                    factors[i] = []
+                    for j in range(len(idx)):
+                        data = (site.values(z[idx[j:j + 1]])[0]
+                                if stacks is None else stacks[i][j])
+                        factors[i].append(site.factor(data))
+                        yield
+
+        self._launch(sites, steps)
+        del stacks
+        # [(site, node indices, mode, factors)]
+        self.groups = [(site, idx, gmode, f) for site, (_, idx), f
+                       in zip(sites, groups, factors)]
         self._sync()
         self.factor_s = time.perf_counter() - t0
+
+    def _interleaves(self, sites) -> bool:
+        """Whether groups on ``sites`` run their cards in turn: where they
+        sit on more than one card and none streams (a streaming group
+        refactors and synchronises node by node)."""
+        return (len({s.device for s in sites}) > 1
+                and self.shard_mode != "streaming")
+
+    def _launch(self, sites, steps) -> None:
+        """Run ``steps(i)``, a stepper of group i's launches on
+        ``sites[i]``, for every group: one stepper a card, which runs that
+        card's groups in group order, the cards advanced in turn
+        (:func:`_in_turn`) where :meth:`_interleaves` says so, else one
+        after another.  The groups of one card never run in turn: they
+        share its stream, and the byte plan holds one group's transient at
+        a time there (:meth:`_Pipeline.needs`)."""
+        by_card: dict = {}
+        for i, site in enumerate(sites):
+            by_card.setdefault(site.device, []).append(i)
+        cards = {d: itertools.chain.from_iterable(map(steps, ix))
+                 for d, ix in by_card.items()}
+        if self._interleaves(sites):
+            self.pipe.interleaved += 1
+            _in_turn(cards)
+            return
+        for stepper in cards.values():
+            for _ in stepper:
+                pass
 
     def _card(self, device, phase: str):
         """The card's span of ``phase`` under "sharded", else nothing."""
@@ -631,6 +729,8 @@ class _Contour:
         else:
             by = by.to(pipe.cdtype)
             shape, dest = tuple(y.shape), y.device
+        # every copy between cards first: B y to each card, once a card,
+        # the operators for refinement, and each group's zeroed sum
         rhs: dict = {}
         sums = []
         for site, idx, gmode, factors in self.groups:
@@ -644,13 +744,20 @@ class _Contour:
                     rhs[site.device] = by.to(site.device)
                     if site.device != dest:
                         pipe.exchanged += _nbytes(by)
-            q = torch.zeros(shape, dtype=pipe.wdtype, device=site.device)
-            with self._card(site.device, "filter"):
-                self._group_sum(q, rhs[site.device], site, idx, gmode,
-                                factors, refine_n)
+                if refine_n:
+                    site.operators()
+            sums.append(torch.zeros(shape, dtype=pipe.wdtype,
+                                    device=site.device))
             if site.device != dest:
-                pipe.exchanged += _nbytes(q)
-            sums.append(q)
+                pipe.exchanged += _nbytes(sums[-1])
+
+        def steps(i):
+            site, idx, gmode, factors = self.groups[i]
+            with self._card(site.device, "filter"):
+                yield from self._group_steps(sums[i], rhs[site.device], site,
+                                             idx, gmode, factors, refine_n)
+
+        self._launch([g[0] for g in self.groups], steps)
         del rhs
         q = sums[0] if len(sums) == 1 else psum(sums, dest)
         if not rows:
@@ -658,8 +765,10 @@ class _Contour:
         return ShardedBlock(by.mesh, by.axis,
                             split(q, by.devices, by.blocks[0]), by.length)
 
-    def _group_sum(self, q, rhs, site, idx, gmode, factors, refine_n):
-        """Add one group's quadrature terms to q, on the group's device."""
+    def _group_steps(self, q, rhs, site, idx, gmode, factors, refine_n):
+        """Add one group's quadrature terms to q, on the group's device: a
+        stepper that yields after each bucket's launches of a batched
+        group's solves, and after each node of any other group."""
         from sparse_linear_tpu_torch.solve import api
 
         passes = (False,) if self.pipe.real else (False, True)
@@ -667,12 +776,12 @@ class _Contour:
             ne = len(idx)
             for trans in passes:
                 zz = np.conj(self.z[idx]) if trans else self.z[idx]
-                s = api.solve_batched(factors,
-                                      rhs.expand((ne,) + rhs.shape), trans)
+                s = yield from api.solve_batched_steps(
+                    factors, rhs.expand((ne,) + rhs.shape), trans)
                 for _ in range(refine_n):
                     r = torch.stack([site.residual(rhs, s[i], complex(zz[i]))
                                      for i in range(ne)])
-                    s += api.solve_batched(factors, r, trans)
+                    s += yield from api.solve_batched_steps(factors, r, trans)
                     del r
                 for i, k in enumerate(idx):
                     self._accumulate(q, s[i], k, trans)
@@ -685,7 +794,7 @@ class _Contour:
             else:
                 t0 = time.perf_counter()
                 with self._card(site.device, "factor"):
-                    fac = site.factor(zk)
+                    fac = site.factor(site.values([zk])[0])
                 _sync(site.device)
                 self.factor_s += time.perf_counter() - t0
             for trans in passes:
@@ -696,6 +805,7 @@ class _Contour:
                 self._accumulate(q, s, k, trans)
                 del s
             del fac
+            yield
 
 
 def _get_pipeline(mat_a, mat_b, backend, dims):
@@ -858,7 +968,7 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
         row_sizes = [(d, -(-n // len(rows))) for d in row_mesh.shards("rows")]
     z, sigma = _contour(emin, emax, params.contour_points,
                         kind=params.quadrature)
-    exchanged = pipe.exchanged
+    exchanged, interleaved = pipe.exchanged, pipe.interleaved
     contour = pipe.contour(z, sigma, m0, params.contour_batching, shards,
                            row_sizes)
     refine_n = _refine_default(params, pipe)
@@ -1001,6 +1111,7 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
         # every card's work ended before the last loop's synchronised psum
         last_run["cards"] = contour.take_cards()
         last_run["exchange_bytes"] = pipe.exchanged - exchanged
+    last_run["interleaved"] = pipe.interleaved - interleaved
     if len(lam_np) == m0:
         # every Ritz pair inside: the subspace is (or may be) too small to
         # hold the invariant subspace (Feast.hs:252-257)

@@ -47,7 +47,9 @@ __all__ = [
     "SOLVE_PART_SYS",
     "solve_refined",
     "factor_batched",
+    "factor_batched_steps",
     "solve_batched",
+    "solve_batched_steps",
     "linear_solve",
     "slogdet",
     "det",
@@ -301,6 +303,18 @@ def factor_batched(pattern_mat, data_stack, symbolic, kind: str = "lu",
     (contour parallelism).  ``data_stack``: (ne, nnz) values in the
     canonical entry order of ``pattern_mat``, on the pattern's device.
     ``kind`` and ``scale`` apply on the multifrontal backend."""
+    from sparse_linear_tpu_torch.solve.multifrontal import _drain
+
+    return _drain(factor_batched_steps(pattern_mat, data_stack, symbolic,
+                                       kind, scale))
+
+
+def factor_batched_steps(pattern_mat, data_stack, symbolic,
+                         kind: str = "lu", scale: str = "none"):
+    """:func:`factor_batched` as a stepper: a generator that returns the
+    factors and, on the multifrontal backend, yields after each bucket's
+    launches (``multifrontal.factor_batched_steps``); the dense backend's
+    one LU takes no step."""
     m = trim(pattern_mat.tocsr())
     data_stack = _as_tensor(data_stack, m.data.device)
     if symbolic.backend == "dense":
@@ -320,18 +334,28 @@ def factor_batched(pattern_mat, data_stack, symbolic, kind: str = "lu",
     if symbolic.backend == "multifrontal":
         from sparse_linear_tpu_torch.solve import multifrontal
 
-        return multifrontal.factor_batched(data_stack, symbolic,
-                                           kind=kind, scale=scale)
+        return (yield from multifrontal.factor_batched_steps(
+            data_stack, symbolic, kind=kind, scale=scale))
     raise ValueError(f"unknown backend: {symbolic.backend}")
 
 
 def solve_batched(factors, b_stack, trans=False):
     """Solves on batched factors: (ne, n, k) -> (ne, n, k)."""
+    from sparse_linear_tpu_torch.solve.multifrontal import _drain
+
+    return _drain(solve_batched_steps(factors, b_stack, trans))
+
+
+def solve_batched_steps(factors, b_stack, trans=False):
+    """:func:`solve_batched` as a stepper, as :func:`factor_batched_steps`:
+    it returns x, and yields after each bucket's launches of each pass on
+    the multifrontal backend."""
     b_stack = _as_tensor(b_stack, _device_of(factors))
     mode = _trans_mode(trans)
     if mode == "T":
-        return torch.conj(solve_batched(factors, torch.conj(b_stack),
-                                        trans="H")).resolve_conj()
+        x = yield from solve_batched_steps(factors, torch.conj(b_stack),
+                                           trans="H")
+        return torch.conj(x).resolve_conj()
     do_h = mode == "H"
     if factors.backend == "dense":
         lu, piv = factors.payload
@@ -339,7 +363,8 @@ def solve_batched(factors, b_stack, trans=False):
     if factors.backend == "multifrontal":
         from sparse_linear_tpu_torch.solve import multifrontal
 
-        return multifrontal.solve_batched(factors, b_stack, trans=do_h)
+        return (yield from multifrontal.solve_batched_steps(
+            factors, b_stack, trans=do_h))
     raise ValueError(f"unknown backend: {factors.backend}")
 
 

@@ -20,6 +20,11 @@ Umfpack.hs:38-102).
   diagnostics stay device tensors until asked for.
 * ``solve`` runs the level-batched forward and backward substitutions with
   the same calls.
+* The level loops of both are steppers, generators that yield after each
+  bucket's launches; every entry point runs them whole, except
+  ``factor_batched_steps`` and ``solve_batched_steps``, which hand the
+  steps to a caller that advances several cards' loops in turn (FEAST's
+  sharded contour, ``eig/pipeline.py``).
 * Spans (``utils.profiling.annotate``): ``slt.mf.analyze`` and its five
   stages, ``slt.mf.factor`` with ``slt.mf.factor.level`` a tree level,
   ``slt.mf.solve`` with ``slt.mf.solve.level`` a level of each pass; on
@@ -107,9 +112,10 @@ from sparse_linear_tpu_torch.formats.matrix import from_triples
 from sparse_linear_tpu_torch.ops.build import trim
 from sparse_linear_tpu_torch.utils.profiling import annotate
 
-__all__ = ["analyze", "factor", "factor_batched", "solve", "solve_batched",
-           "solve_part", "slogdet", "rcond", "get_factors", "lunz",
-           "replay_counts", "MFSymbolic", "MFFactors"]
+__all__ = ["analyze", "factor", "factor_batched", "factor_batched_steps",
+           "solve", "solve_batched", "solve_batched_steps", "solve_part",
+           "slogdet", "rcond", "get_factors", "lunz", "replay_counts",
+           "MFSymbolic", "MFFactors"]
 
 
 def _class_of(x: int, lo: int = 8) -> int:
@@ -136,6 +142,30 @@ def _full_f32():
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+def _drain(steps):
+    """Run the stepper ``steps`` (a generator) to its end; its return
+    value."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as stop:
+            return stop.value
+
+
+def _f32_steps(steps):
+    """The stepper ``steps`` with each of its steps run under
+    :func:`_full_f32`, the setting restored between steps: steppers
+    advanced in turn on one thread then never restore one another's
+    setting in the middle of a step.  Its return value is ``steps``'."""
+    while True:
+        with _full_f32():
+            try:
+                next(steps)
+            except StopIteration as stop:
+                return stop.value
+        yield
 
 
 class MFSymbolic:
@@ -711,7 +741,9 @@ def _by_level(level_buckets, span: str, down: bool = False,
 
 def _factor_run(symbolic: MFSymbolic, dm, a_data, kind: str,
                 pivot_eps: float, parts=None):
-    """The level/bucket loop over E value-sets ``a_data`` (E, nnz).
+    """The level/bucket loop over E value-sets ``a_data`` (E, nnz), as a
+    stepper: a generator that yields after each bucket's launches and
+    returns the blocks (:func:`_drain` runs it whole).
 
     Blocks come out (E, nb, ...) on ``a_data``'s device.  No host
     synchronisation inside: the diagnostic count stays a device tensor
@@ -811,6 +843,7 @@ def _factor_run(symbolic: MFSymbolic, dm, a_data, kind: str,
             updates[bidx] = [o[5].view(ne, o[0], us_c, us_c)
                              for o in out]
         del out
+        yield
     blocks[-1] = {"n_flag": n_flag}
     return blocks
 
@@ -904,8 +937,8 @@ def _factor_blocks(symbolic: MFSymbolic, dm, a_data, kind: str, scale: str,
     if scale != "none":
         a_data, rscale = _equilibrate(a_data, symbolic, dm, kind, scale)
     with _full_f32():
-        blocks = _factor_run(symbolic, dm, a_data[None], kind, pivot_eps,
-                             parts)
+        blocks = _drain(_factor_run(symbolic, dm, a_data[None], kind,
+                                    pivot_eps, parts))
     blocks = {k: {name: t[0] for name, t in blk.items()}
               for k, blk in blocks.items()}
     if rscale is not None:
@@ -921,6 +954,17 @@ def factor_batched(data_stack, symbolic: MFSymbolic,
     z_k B - A).  The ne sets fold into each bucket's batch dimension, so
     every bucket is still one call per step.  A host array goes to
     ``device`` (by default the card); a tensor keeps its device."""
+    return _drain(factor_batched_steps(data_stack, symbolic, kind, scale,
+                                       device=device))
+
+
+def factor_batched_steps(data_stack, symbolic: MFSymbolic,
+                         kind: str = "lu", scale: str = "none",
+                         *, device=None):
+    """:func:`factor_batched` as a stepper: a generator that yields after
+    each bucket's launches and returns the factors, so that one host thread
+    can keep several cards' factorizations queued by advancing them in
+    turn.  Each step runs under full f32 products (:func:`_f32_steps`)."""
     with annotate("slt.mf.factor"):
         if not isinstance(data_stack, torch.Tensor):
             data_stack = torch.as_tensor(np.asarray(data_stack),
@@ -932,8 +976,8 @@ def factor_batched(data_stack, symbolic: MFSymbolic,
         if scale != "none":
             data_stack, rscale = _equilibrate(data_stack, symbolic, dm, kind,
                                               scale)
-        with _full_f32():
-            blocks = _factor_run(symbolic, dm, data_stack, kind, 0.0)
+        blocks = yield from _f32_steps(
+            _factor_run(symbolic, dm, data_stack, kind, 0.0))
         if rscale is not None:
             blocks[-2] = {"rscale": rscale}  # (ne, n) per-set scaling
         return MFFactors(symbolic, blocks, data_stack.dtype, kind=kind,
@@ -947,7 +991,9 @@ def factor_batched(data_stack, symbolic: MFSymbolic,
 
 def _solve_run(factors: MFFactors, b, trans: bool, phase: str = "both"):
     """Level-batched substitutions on ``b`` (E, n, k), E value-sets of
-    (E, nb, ...) blocks.
+    (E, nb, ...) blocks, as a stepper: a generator that yields after each
+    bucket's launches of each pass and returns x (:func:`_drain` runs it
+    whole).
 
     ``phase`` selects a half of the pipeline: ``"both"`` — the full A / A^H
     solve (entry fill-order gather, forward + backward loops, exit inverse
@@ -1016,12 +1062,14 @@ def _solve_run(factors: MFFactors, b, trans: bool, phase: str = "both"):
             z = tri(lu, z, upper=False, unitriangular=not chol)
             put(piv, z)
             add(upd, -torch.bmm(g21, z))
+            yield
         # backward: x_piv = U^{-1} (z_piv - G12 x_upd)
         for bidx in down_levels if do_bwd else ():
             lu, _, _, g12 = blk(bidx)
             piv, upd = dm["rows_piv"][bidx], dm["rows_upd"][bidx]
             rhs = gather(piv) - torch.bmm(g12, gather(upd))
             put(piv, tri(lu.mH if chol else lu, rhs, upper=True))
+            yield
     else:
         # A'^H = U^H L^H P:
         # forward (bottom-up): w = U^{-H} y_piv ; y_upd -= G12^H w
@@ -1031,6 +1079,7 @@ def _solve_run(factors: MFFactors, b, trans: bool, phase: str = "both"):
             w = tri(lu if chol else lu.mH, gather(piv), upper=False)
             put(piv, w)
             add(upd, -torch.bmm(g12.mH, w))
+            yield
         # backward (top-down): v = L^{-H}(w - G21^H v_upd); x = P^T v
         for bidx in down_levels if do_bwd else ():
             lu, lp, g21, _ = blk(bidx)
@@ -1041,6 +1090,7 @@ def _solve_run(factors: MFFactors, b, trans: bool, phase: str = "both"):
                 v = torch.zeros_like(v).scatter_(
                     1, lp.long()[:, :, None].expand(-1, -1, k), v)
             put(piv, v)
+            yield
 
     x = y[:, :n][:, dm["iperm"]] if full else y[:, :n]
     if full and rs is not None and (chol or trans):
@@ -1090,12 +1140,19 @@ def solve(factors: MFFactors, b, trans: bool = False):
 def _solve_one(factors: MFFactors, b, trans: bool):
     """The full solve of ``b`` (n, k), in ``b``'s dtype."""
     with _full_f32():
-        return _solve_run(factors, b[None], trans)[0]
+        return _drain(_solve_run(factors, b[None], trans))[0]
 
 
 def solve_batched(factors: MFFactors, b_stack, trans: bool = False):
     """Batched solves on batched factors: ``b_stack`` (ne, n, k) ->
     (ne, n, k)."""
+    return _drain(solve_batched_steps(factors, b_stack, trans))
+
+
+def solve_batched_steps(factors: MFFactors, b_stack, trans: bool = False):
+    """:func:`solve_batched` as a stepper: a generator that yields after
+    each bucket's launches of each pass and returns x, as
+    :func:`factor_batched_steps`."""
     with annotate("slt.mf.solve"):
         if not isinstance(b_stack, torch.Tensor):
             b_stack = torch.as_tensor(np.asarray(b_stack))
@@ -1105,10 +1162,9 @@ def solve_batched(factors: MFFactors, b_stack, trans: bool = False):
             raise ValueError(
                 f"solve_batched: expected ({factors.batch or '?'}, n, k) rhs "
                 "stack")
-        with _full_f32():
-            return _solve_run(factors,
-                              b_stack.to(_solve_dtype(factors, b_stack)),
-                              bool(trans))
+        return (yield from _f32_steps(_solve_run(
+            factors, b_stack.to(_solve_dtype(factors, b_stack)),
+            bool(trans))))
 
 
 # ---------------------------------------------------------------------------
@@ -1555,8 +1611,8 @@ def solve_part(factors: MFFactors, b, sys: str):
     if pre is not None:
         b = b[torch.as_tensor(pre, dtype=torch.int64, device=b.device)]
     with _full_f32():
-        x = _solve_run(factors, b.to(_solve_dtype(factors, b))[None],
-                       trans, phase=phase)[0]
+        x = _drain(_solve_run(factors, b.to(_solve_dtype(factors, b))[None],
+                              trans, phase=phase))[0]
     if post is not None:
         x = x[torch.as_tensor(post, dtype=torch.int64, device=x.device)]
     return x[:, 0] if squeeze else x

@@ -1387,3 +1387,64 @@ def test_front_lu_runs_under_cusolver_and_restores_the_backend(dev,
     assert seen and all(str(s).endswith("Cusolver") for s in seen)
     b = torch.randn(g ** 3, dtype=torch.float64, device=dev)
     assert _direct_resid(a, mf.solve(f, b), b) <= 1e-12
+
+
+def test_sharded_feast_runs_the_cards_in_turn(dev, monkeypatch):
+    """FEAST on a 12**3 cube with its contour sharded over every card
+    present (two or more): the cards launched in turn give bitwise the
+    values and vectors of the cards drained one after another (under
+    torch's deterministic algorithms, so that the extend-add sums in a
+    fixed order), the same loops and copied bytes, 1 + loops phases run in
+    turn, and values within 1e-12 of the one-card run."""
+    import warnings
+
+    from sparse_linear_tpu_torch.dist import card_mesh
+    from sparse_linear_tpu_torch.eig import pipeline
+    from sparse_linear_tpu_torch.eig.feast import INFO_OK, FeastParams, eigsh
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    g = 12
+    lam1 = 4 * np.sin(np.arange(1, g + 1) * np.pi / (2 * (g + 1))) ** 2
+    lam = np.sort((lam1[:, None, None] + lam1[None, :, None]
+                   + lam1[None, None, :]).ravel())
+    # the upper edge in the gap above the cluster of the 20th eigenvalue
+    k = int(np.searchsorted(lam, lam[19] + 1e-9))
+    emax = float((lam[k - 1] + lam[k]) / 2)
+    a = poisson_3d(g, dtype=torch.float64, device=dev)
+    p = FeastParams(tol=1e-10, backend="multifrontal", dims=(g, g, g))
+    single = eigsh(40, (0.0, emax), a, p)
+
+    def serial(steps):
+        for stepper in steps.values():
+            for _ in stepper:
+                pass
+
+    runs = []
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            for drain in (pipeline._in_turn, serial):
+                pipeline.clear_pipeline_cache()
+                monkeypatch.setattr(pipeline, "_in_turn", drain)
+                res = eigsh(40, (0.0, emax), a, p,
+                            mesh=card_mesh(cards, ("cp",)))
+                runs.append((res, dict(pipeline.last_run)))
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+    (got, run), (want, drained) = runs
+    assert len(set(run["shards"])) == len(run["shards"]) == cards
+    assert got.info == want.info == single.info == INFO_OK
+    np.testing.assert_array_equal(got.values, want.values)
+    assert torch.equal(got.vectors, want.vectors)
+    assert got.iterations == want.iterations == len(run["loops"])
+    assert run["exchange_bytes"] == drained["exchange_bytes"]
+    assert run["interleaved"] == 1 + got.iterations
+    assert len(got.values) == k
+    np.testing.assert_allclose(got.values, single.values, rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(got.values, lam[:k], rtol=1e-10)

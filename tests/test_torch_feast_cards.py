@@ -11,6 +11,7 @@ each, while the port, which tells shards apart by their devices, keeps a
 site, a clock and the copies of each apart as on four cards.
 """
 
+import dataclasses
 import math
 import weakref
 from pathlib import Path
@@ -204,6 +205,170 @@ def test_a_dropped_contour_is_freed_before_the_next_is_factored(
     feast.eigsh(M0, _narrower(window, 0.9), a, _params(grid), mesh=mesh)
     assert alive == [[False] * len(old)]
     assert len(pipe.contours) == 1
+
+
+def _serial(steps):
+    """The cards' steppers drained one card after another: the order the
+    sharded contour ran in before its cards were launched in turn."""
+    for stepper in steps.values():
+        for _ in stepper:
+            pass
+
+
+@pytest.mark.parametrize("grid,batching", [
+    ([10, 10, 10], "auto"), ([8, 10, 12], "auto"), ([10, 10, 10], "loop")],
+    ids=["cube 10^3", "box 8x10x12", "cube 10^3 per-node"])
+def test_cards_in_turn_are_bitwise_the_serial_drain(grid, batching,
+                                                    monkeypatch):
+    a, _, _, window = _problem(grid)
+    params = dataclasses.replace(_params(grid), contour_batching=batching)
+    runs = []
+    for drain in (pipeline._in_turn, _serial):
+        pipeline.clear_pipeline_cache()
+        monkeypatch.setattr(pipeline, "_in_turn", drain)
+        res = feast.eigsh(M0, window, a, params, mesh=_four_cards())
+        runs.append((res, dict(pipeline.last_run)))
+    (got, run), (want, serial) = runs
+    assert run["shard_mode"] == ("per-node" if batching == "loop"
+                                 else "batched")
+    assert got.info == want.info == feast.INFO_OK
+    np.testing.assert_array_equal(got.values, want.values)
+    assert torch.equal(got.vectors, want.vectors)
+    assert got.iterations == want.iterations == len(run["loops"])
+    assert run["exchange_bytes"] == serial["exchange_bytes"]
+    assert run["interleaved"] == serial["interleaved"] == 1 + got.iterations
+
+
+def test_cards_launch_in_turn_after_every_copy_to_them(monkeypatch):
+    """A launch trace of a cold sharded call: ``_bucket_factor`` calls and
+    solve steps, each tagged with the card whose stepper ran it, copies to
+    another card, and the start and end of each phase run in turn."""
+    from sparse_linear_tpu_torch.solve import multifrontal as mf
+
+    grid = [8, 8, 8]
+    a, _, _, window = _problem(grid)
+    log, card = [], [None]
+    cards = ["cpu", "cpu:1", "cpu:2", "cpu:3"]
+
+    def tagged(dev, stepper):
+        while True:
+            card[0] = str(dev)
+            try:
+                next(stepper)
+            except StopIteration:
+                return
+            yield
+
+    real_turn = pipeline._in_turn
+
+    def in_turn(steps):
+        log.append(("phase", None))
+        real_turn({d: tagged(d, s) for d, s in steps.items()})
+        log.append(("end", None))
+
+    real_bucket = mf._bucket_factor
+
+    def bucket(*args, **kw):
+        log.append(("factor", card[0]))
+        return real_bucket(*args, **kw)
+
+    real_solve = mf._solve_run
+
+    def solve_run(*args, **kw):
+        steps = real_solve(*args, **kw)
+        while True:
+            try:
+                next(steps)
+            except StopIteration as stop:
+                return stop.value
+            log.append(("solve", card[0]))
+            yield
+
+    real_to = torch.Tensor.to
+
+    def to(self, *args, **kw):
+        dest = kw.get("device", args[0] if args else None)
+        if isinstance(dest, (str, torch.device)) and \
+                torch.device(dest) != self.device:
+            log.append(("copy", str(torch.device(dest))))
+        return real_to(self, *args, **kw)
+
+    monkeypatch.setattr(pipeline, "_in_turn", in_turn)
+    monkeypatch.setattr(mf, "_bucket_factor", bucket)
+    monkeypatch.setattr(mf, "_solve_run", solve_run)
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    pipeline.clear_pipeline_cache()
+    res = feast.eigsh(M0, window, a, _params(grid), mesh=_four_cards())
+    monkeypatch.undo()
+    loops = res.iterations
+    assert res.info == feast.INFO_OK
+    starts = [i for i, (what, _) in enumerate(log) if what == "phase"]
+    ends = [i for i, (what, _) in enumerate(log) if what == "end"]
+    assert len(starts) == len(ends) == 1 + loops
+    buckets = len(mf.analyze(a, dims=tuple(grid)).schedule["flat"])
+    before = 0
+    for k, (lo, hi) in enumerate(zip(starts, ends)):
+        # the phase's copies: to each other card, all before its launches
+        copied = {dest for what, dest in log[before:lo] if what == "copy"}
+        assert copied == set(cards[1:])
+        inside = log[lo + 1:hi]
+        kind = "factor" if k == 0 else "solve"
+        assert all(what == kind for what, _ in inside)
+        # one bucket a card in turn: the factor's buckets, or the forward
+        # and backward passes of a real pencil's solves
+        rounds = buckets if k == 0 else 2 * buckets
+        assert [dest for _, dest in inside] == cards * rounds
+        before = hi + 1
+
+
+def test_interleaved_counts_the_phases_run_in_turn():
+    grid = [8, 8, 8]
+    a, _, _, window = _problem(grid)
+    res = feast.eigsh(M0, window, a, _params(grid), mesh=_four_cards())
+    assert pipeline.last_run["interleaved"] == 1 + res.iterations
+    # the contour cached: only the filters run in turn
+    res = feast.eigsh(M0, window, a, _params(grid), mesh=_four_cards())
+    assert pipeline.last_run["interleaved"] == res.iterations
+    for mesh in (None, card_mesh(4, ("cp",), device="cpu")):
+        feast.eigsh(M0, _narrower(window, 0.9), a, _params(grid), mesh=mesh)
+        assert pipeline.last_run["interleaved"] == 0
+
+
+def test_stepped_factors_keep_full_f32_to_their_own_steps(monkeypatch):
+    """Two f32 factorizations advanced in turn: every bucket runs under
+    full f32 products, and between steps the caller's setting holds."""
+    from sparse_linear_tpu_torch.solve import multifrontal as mf
+    from sparse_linear_tpu_torch.utils.grids import poisson_2d
+
+    a = poisson_2d(12, dtype=torch.float32, device="cpu")
+    sym = mf.analyze(a, dims=(12, 12))
+    seen = []
+    real = mf._bucket_factor
+
+    def bucket(*args, **kw):
+        seen.append(torch.get_float32_matmul_precision())
+        return real(*args, **kw)
+
+    monkeypatch.setattr(mf, "_bucket_factor", bucket)
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        steps = {k: mf.factor_batched_steps(torch.stack([a.data * k]), sym)
+                 for k in (1.0, 2.0)}
+        between = []
+        live = list(steps.values())
+        while live:
+            for s in tuple(live):
+                try:
+                    next(s)
+                except StopIteration:
+                    live.remove(s)
+                between.append(torch.get_float32_matmul_precision())
+    finally:
+        torch.set_float32_matmul_precision(before)
+    assert len(seen) == 2 * len(sym.schedule["flat"])
+    assert set(seen) == {"highest"}
+    assert set(between) == {"medium"}
 
 
 def _run(trace=False, **kw):
