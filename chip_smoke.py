@@ -1327,15 +1327,16 @@ def feast_phase(dev, card: str, seed: int, grids=(192, 1024, 64),
                            ("streaming", "auto")):
         if mode == planned:
             continue
+        budget = pipeline._budget
         if mode == "streaming":
-            os.environ["SLT_FEAST_MEMORY_BUDGET"] = "1"
+            pipeline._budget = lambda device, held=0.0: 1.0
         try:
             other = solve(f"lowest 50 of {g}^2, {mode} forced", a,
                           (0.0, emax), lam[:50], dataclasses.replace(
                               p, contour_batching=batching), warm=3,
                           rel=True)
         finally:
-            os.environ.pop("SLT_FEAST_MEMORY_BUDGET", None)
+            pipeline._budget = budget
         d = float(np.max(np.abs(np.asarray(other.values)
                                 - np.asarray(res.values))
                          / np.asarray(res.values)))

@@ -193,8 +193,7 @@ def eigsh_filtered(m0, interval, mat_a, tol: float = 1e-10,
     def a_mm(x):
         """A x in f64, in a block of its own (the filter updates it in
         place)."""
-        y = a_op(x)
-        return y.clone() if y is x else y.to(f64)
+        return a_op(x).to(f64)
 
     if lam_ub is None:
         lam_ub = lanczos_upper_bound(a_mm, n, device=device)

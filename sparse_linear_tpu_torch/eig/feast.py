@@ -33,8 +33,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sparse_linear_tpu_torch.dtypes import real_of
-from sparse_linear_tpu_torch.formats.matrix import eye
 from sparse_linear_tpu_torch.utils.profiling import annotate
 
 __all__ = ["FeastParams", "EigResult", "eigsh", "geigsh",
@@ -103,29 +101,6 @@ class EigResult(NamedTuple):
     subspace: object         # (n, m0) final subspace for warm restart
 
 
-_HERMITIAN_CACHE: dict = {}
-_HERMITIAN_CACHE_MAX = 64
-
-
-def _check_hermitian(mat, name, where="geigsh"):
-    """Reference precondition (Feast.hs:129-130): ctrans m == m, compared
-    in O(nnz) on the canonical CSR.  The verdict is cached per value
-    fingerprint: warm restarts and interval sweeps re-solve one pencil."""
-    from sparse_linear_tpu_torch.eig.pipeline import _fingerprint
-
-    key = _fingerprint(mat)
-    ok = _HERMITIAN_CACHE.get(key)
-    if ok is None:
-        csr = mat.tocsr()
-        scale = float(torch.abs(csr.data[:csr.nnz]).max()) if csr.nnz else 1.0
-        ok = bool(csr.is_hermitian(tol=1e-12 * max(1.0, scale)))
-        if len(_HERMITIAN_CACHE) >= _HERMITIAN_CACHE_MAX:
-            _HERMITIAN_CACHE.pop(next(iter(_HERMITIAN_CACHE)))
-        _HERMITIAN_CACHE[key] = ok
-    if not ok:
-        raise ValueError(f"{where}: matrix {name} is not hermitian")
-
-
 def _contour(emin, emax, ne, kind: str = "gauss"):
     """Quadrature nodes/weights on the upper semicircle: "gauss" (FEAST
     fpm(16)=0) or "trapezoid" (fpm(16)=1, midpoint angles).
@@ -151,31 +126,6 @@ def _contour(emin, emax, ne, kind: str = "gauss"):
     # weight for each node: w_k * (pi/2) / (2 pi) * r e^{i theta_k}
     sigma = w * (np.pi / 2.0) / (2.0 * np.pi) * r * np.exp(1j * theta)
     return z, sigma
-
-
-def _union_shift_stack(mat_a, mat_b):
-    """Union-pattern pencil matrices and the shifted values over them.
-
-    One symbolic analysis serves every contour node (Feast.hs:210-218), so
-    A and B are rewritten onto their union pattern (``lin`` with 0/1
-    coefficients; an entry whose fold is zero stays in the pattern) and
-    the node values are z_k * B - A over that shared entry order.  Returns
-    (union_b, union_a, stack) with ``stack(z)`` the (len(z), nnz) complex
-    node values on the matrices' device."""
-    from sparse_linear_tpu_torch.dtypes import complex_of
-    from sparse_linear_tpu_torch.ops.linalg import lin
-
-    union_b = lin(1, mat_b, 0, mat_a)  # union pattern, B values
-    union_a = lin(0, mat_b, 1, mat_a)  # union pattern, A values
-    cdtype = complex_of(torch.promote_types(mat_a.dtype, mat_b.dtype))
-    ub, ua = union_b.data.to(cdtype), union_a.data.to(cdtype)
-
-    def stack(z_nodes):
-        z = torch.as_tensor(np.asarray(z_nodes, dtype=np.complex128),
-                            device=ub.device).to(cdtype)
-        return z[:, None] * ub[None, :] - ua[None, :]
-
-    return union_b, union_a, stack
 
 
 def _reduced_geig(aq, bq):
@@ -216,20 +166,6 @@ def _whiten_mat(g_np, passes=2):
         wtot = wtot @ w1
         g = w1.conj().T @ g @ w1
     return wtot
-
-
-def _is_identity(mat) -> bool:
-    """mat == I exactly (the eigSH B:=ident case, Feast.hs:99-100; skips
-    every B product and B residual)."""
-    csr = mat.tocsr()
-    n = csr.shape[0]
-    if csr.shape[1] != n or csr.nnz != n:
-        return False
-    ar = torch.arange(n, device=csr.data.device)
-    return bool(torch.equal(csr.indptr.to(torch.int64),
-                            torch.arange(n + 1, device=ar.device))
-                and torch.equal(csr.indices[:n].to(torch.int64), ar)
-                and bool((csr.data[:n] == 1).all()))
 
 
 def _mesh_shards(where, mesh, params, contour_axis, rows_axis):
@@ -320,9 +256,6 @@ def _geigsh(m0, interval, mat_a, mat_b, params, guess, mesh, contour_axis,
     if m0 < 1 or m0 > n:
         raise ValueError(f"geigsh: m0 must be in [1, {n}]")
     mat_a, mat_b = _device_mats(mat_a, mat_b, device)
-    if params.check_hermitian:
-        _check_hermitian(mat_a, "A")
-        _check_hermitian(mat_b, "B")
     return pipeline.geigsh_pipeline(m0, (emin, emax), mat_a, mat_b, params,
                                     guess=guess, shards=shards, rows=rows)
 
@@ -334,11 +267,8 @@ def eigsh(m0, interval, mat_a, params: FeastParams = FeastParams(),
     Feast.hs:53-60,91-100); ``mesh`` as in :func:`geigsh`.  The call,
     identity B included, is the span ``slt.feast.eigsh``."""
     with annotate("slt.feast.eigsh"):
-        mat_a, _ = _device_mats(mat_a, None, device)
-        b = eye(mat_a.shape[0], dtype=real_of(mat_a.dtype),
-                device=mat_a.data.device)
-        return _geigsh(m0, interval, mat_a, b, params, guess, mesh,
-                       contour_axis, rows_axis, None)
+        return _geigsh(m0, interval, mat_a, None, params, guess, mesh,
+                       contour_axis, rows_axis, device)
 
 
 def count_eigenvalues(interval, mat_a, mat_b=None, probes: int = 16,
@@ -358,11 +288,6 @@ def count_eigenvalues(interval, mat_a, mat_b=None, probes: int = 16,
     emin, emax, n = _check_args("count_eigenvalues", interval, mat_a, mat_b,
                                 params)
     mat_a, mat_b = _device_mats(mat_a, mat_b, device)
-    if mat_b is None:
-        mat_b = eye(n, dtype=real_of(mat_a.dtype), device=mat_a.data.device)
-    if params.check_hermitian:
-        _check_hermitian(mat_a, "A", "count_eigenvalues")
-        _check_hermitian(mat_b, "B", "count_eigenvalues")
     s = int(max(1, probes))
     rng = np.random.default_rng(seed)
     x = rng.choice(np.asarray([-1.0, 1.0]), size=(n, s))  # Rademacher

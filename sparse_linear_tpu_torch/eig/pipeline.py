@@ -5,8 +5,11 @@ package's accelerator path of ``geigsh``, keeping what is not a TPU
 workaround, for real symmetric and complex Hermitian pencils alike:
 
 1. **Pattern-keyed pipeline cache** (``real_pipeline.py:9-14``,
-   ``:606-614``).  Keyed by host fingerprints of A and B, the backend, the
-   grid dims and the device, a pipeline holds the union pattern's values,
+   ``:606-614``).  :func:`_get_pipeline` is the one place that says which
+   pencil a call solves: it keys a pipeline by a host fingerprint of A, by
+   B's shape and dtype where B is the identity (else by B's fingerprint),
+   by the backend, the grid dims and the device, and checks the pencil
+   Hermitian once a pipeline.  A pipeline holds the union pattern's values,
    ONE ``solve.api.analyze`` of that pattern (``dims`` go to the port's
    nested dissection by grid), the structured operators of A and B, and at
    most two cached factor sets (one per contour).
@@ -32,8 +35,7 @@ workaround, for real symmetric and complex Hermitian pencils alike:
    node's factors resident at a time, factored again every loop,
    ``real_pipeline.py:452-577``).  :meth:`_Pipeline.plan` compares the
    port's own byte count with the card's free memory
-   (``torch.cuda.mem_get_info``); ``SLT_FEAST_MEMORY_BUDGET`` (bytes)
-   overrides that memory, so a test can force streaming.  A fourth mode,
+   (``torch.cuda.mem_get_info``; unbounded on the CPU).  A fourth mode,
    "sharded" (``geigsh(mesh=)``), splits the nodes into contiguous groups,
    one a shard of the contour axis: each shard factors and solves its
    nodes on its device in the first of the three ways whose bytes fit
@@ -47,8 +49,7 @@ workaround, for real symmetric and complex Hermitian pencils alike:
    the bytes copied between cards (:class:`_CardClock`).  Where the
    groups sit on more than one card, one host thread advances the cards'
    factorizations and solves in turn, a bucket of launches each, once
-   every copy between cards is queued (:class:`_Contour`); every call's
-   ``last_run["interleaved"]`` counts the phases run so.  A mesh whose
+   every copy between cards is queued (:class:`_Contour`).  A mesh whose
    rows axis has more than one shard also row-shards the subspace (the JAX
    package's ``P(rows_axis, None)`` blocks): every (n, m0) block is a
    ``dist.sharded.ShardedBlock``, A and B are row-sharded once per rows
@@ -81,7 +82,6 @@ from __future__ import annotations
 import contextlib
 import itertools
 import math
-import os
 import time
 from typing import NamedTuple
 
@@ -149,6 +149,29 @@ def _fingerprint(mat) -> tuple:
         return (tuple(csr.shape), str(csr.dtype)) + tuple(
             hash(t.detach().resolve_conj().cpu().numpy().tobytes())
             for t in leaves)
+
+
+def _is_identity(mat) -> bool:
+    """mat == I exactly (the eigSH B:=ident case, Feast.hs:99-100; skips
+    every B product and B residual)."""
+    csr = mat.tocsr()
+    n = csr.shape[0]
+    if csr.shape[1] != n or csr.nnz != n:
+        return False
+    ar = torch.arange(n, device=csr.data.device)
+    return bool(torch.equal(csr.indptr.to(torch.int64),
+                            torch.arange(n + 1, device=ar.device))
+                and torch.equal(csr.indices[:n].to(torch.int64), ar)
+                and bool((csr.data[:n] == 1).all()))
+
+
+def _check_hermitian(mat, name, where) -> None:
+    """Reference precondition (Feast.hs:129-130): ctrans m == m, compared
+    in O(nnz) on the canonical CSR."""
+    csr = mat.tocsr()
+    scale = float(torch.abs(csr.data[:csr.nnz]).max()) if csr.nnz else 1.0
+    if not csr.is_hermitian(tol=1e-12 * max(1.0, scale)):
+        raise ValueError(f"{where}: matrix {name} is not hermitian")
 
 
 def _sync(device) -> None:
@@ -232,20 +255,20 @@ class StructuredOp:
 
 def _structured_op(mat) -> StructuredOp:
     """The operator's route, chosen once (``real_pipeline.py:106-185``):
-    a banded operator (at most 64 diagonals) to DIA, any other to WELL,
-    real or complex.  The JAX BSR route for f64 and complex exists because
-    the TPU emulates f64, and kernel D in f64, complex64 or complex128
-    takes its place.  The reference's 1/64 WELL fill floor is a TPU
-    capacity choice: kernel D computes any WELL, so an operator that is not
-    banded always runs on it."""
-    from sparse_linear_tpu_torch.eig.feast import _is_identity
+    None, which stands for the identity, to no product; a banded operator
+    (at most 64 diagonals) to DIA, any other to WELL, real or complex.  The
+    JAX BSR route for f64 and complex exists because the TPU emulates f64,
+    and kernel D in f64, complex64 or complex128 takes its place.  The
+    reference's 1/64 WELL fill floor is a TPU capacity choice: kernel D
+    computes any WELL, so an operator that is not banded always runs on
+    it."""
     from sparse_linear_tpu_torch.formats.structured import csr_to_dia
     from sparse_linear_tpu_torch.formats.well import csr_to_well
     from sparse_linear_tpu_torch.kernels.spmv_dia import dia_spmm_kernel
     from sparse_linear_tpu_torch.kernels.spmv_well import well_spmm
     from sparse_linear_tpu_torch.ops.build import trim
 
-    if _is_identity(mat):
+    if mat is None:
         return StructuredOp("identity")
     csr = trim(mat.tocsr())
     try:
@@ -279,13 +302,9 @@ def _row_op(op: StructuredOp, mesh) -> StructuredOp:
 
 
 def _budget(device, held: float = 0.0) -> float:
-    """Bytes a contour may hold: ``SLT_FEAST_MEMORY_BUDGET`` if set, else a
-    share of the card's free memory and of what torch's allocator holds
-    unused, plus ``held`` (bytes of cached factor sets that may be
-    dropped); unbounded on the CPU."""
-    env = os.environ.get("SLT_FEAST_MEMORY_BUDGET")
-    if env is not None:
-        return float(env)
+    """Bytes a contour may hold: a share of the card's free memory and of
+    what torch's allocator holds unused, plus ``held`` (bytes of cached
+    factor sets that may be dropped); unbounded on the CPU."""
     if device.type != "cuda":
         return math.inf
     free, _ = torch.cuda.mem_get_info(device)
@@ -294,12 +313,38 @@ def _budget(device, held: float = 0.0) -> float:
     return _BUDGET_SHARE * (free + cached) + held
 
 
+def _union_shift_stack(mat_a, mat_b):
+    """Union-pattern pencil matrices and the shifted values over them.
+
+    One symbolic analysis serves every contour node (Feast.hs:210-218), so
+    A and B are rewritten onto their union pattern (``lin`` with 0/1
+    coefficients; an entry whose fold is zero stays in the pattern) and
+    the node values are z_k * B - A over that shared entry order.  Returns
+    (union_b, stack) with ``stack(z)`` the (len(z), nnz) complex node
+    values on the matrices' device."""
+    from sparse_linear_tpu_torch.ops.linalg import lin
+
+    union_b = lin(1, mat_b, 0, mat_a)  # union pattern, B values
+    union_a = lin(0, mat_b, 1, mat_a)  # union pattern, A values
+    cdtype = complex_of(torch.promote_types(mat_a.dtype, mat_b.dtype))
+    ub, ua = union_b.data.to(cdtype), union_a.data.to(cdtype)
+
+    def stack(z_nodes):
+        z = torch.as_tensor(np.asarray(z_nodes, dtype=np.complex128),
+                            device=ub.device).to(cdtype)
+        return z[:, None] * ub[None, :] - ua[None, :]
+
+    return union_b, stack
+
+
 class _Pipeline:
     """All pattern- and value-dependent state for one (A, B, backend,
-    dims) on one device."""
+    dims) on one device.  ``b_identity``: B is the identity (the verdict of
+    :func:`_get_pipeline`), which no operator of the pipeline multiplies
+    by and no card copies; else B is multiplied as any other matrix."""
 
-    def __init__(self, mat_a, mat_b, backend: str, dims):
-        from sparse_linear_tpu_torch.eig.feast import _union_shift_stack
+    def __init__(self, mat_a, mat_b, backend: str, dims,
+                 b_identity: bool = False):
         from sparse_linear_tpu_torch.solve import api
 
         t0 = time.perf_counter()
@@ -309,12 +354,12 @@ class _Pipeline:
         self.real = not self.wdtype.is_complex
         self.cdtype = complex_of(self.wdtype)
         # values(z): the (len(z), nnz) node values z_k B - A
-        self.pattern, _, self.values = _union_shift_stack(mat_a, mat_b)
+        self.pattern, self.values = _union_shift_stack(mat_a, mat_b)
         opts = {"dims": tuple(dims)} if dims is not None else {}
         self.symbolic = api.analyze(self.pattern, backend=backend, **opts)
-        self.a_op = _structured_op(mat_a)
-        self.b_op = _structured_op(mat_b)
-        self.mats = (mat_a, mat_b)
+        # (A, B), B None where it is the identity
+        self.mats = (mat_a, None if b_identity else mat_b)
+        self.a_op, self.b_op = map(_structured_op, self.mats)
         _sync(self.device)
         self.analyze_s = time.perf_counter() - t0
         self.contours: dict = {}
@@ -322,9 +367,8 @@ class _Pipeline:
         self.row_sets: dict = {}
         # bytes copied between this pipeline's device and its sites' cards
         self.exchanged = 0
-        # phases (a factorization, a filter) whose cards were launched in
-        # turn (:func:`_in_turn`)
-        self.interleaved = 0
+        # whether A and B were checked Hermitian (:func:`_get_pipeline`)
+        self.checked = False
 
     def row_ops(self, mesh) -> tuple:
         """(A, B) row-sharded over ``mesh["rows"]``, built once a layout."""
@@ -504,8 +548,7 @@ class _Pipeline:
     def residual(self, rhs, s, zk):
         """rhs - (zk B - A) s, through the structured operators."""
         a_op, b_op = self.operators()
-        bs = s if b_op.route == "identity" else b_op(s)
-        return rhs - zk * bs + a_op(s)
+        return rhs - zk * b_op(s) + a_op(s)
 
 
 class _Site:
@@ -530,12 +573,14 @@ class _Site:
 
     def operators(self) -> tuple:
         """(A, B) copied here and made structured operators, at first
-        use."""
+        use; an identity B is not copied."""
         if self._ops is None:
-            self._ops = tuple(_structured_op(m.to(self.device))
-                              for m in self.pipe.mats)
+            self._ops = tuple(
+                _structured_op(None if m is None else m.to(self.device))
+                for m in self.pipe.mats)
             self.pipe.exchanged += sum(_csr_bytes(m.tocsr())
-                                       for m in self.pipe.mats)
+                                       for m in self.pipe.mats
+                                       if m is not None)
         return self._ops
 
     def residual(self, rhs, s, zk):
@@ -649,7 +694,6 @@ class _Contour:
         cards = {d: itertools.chain.from_iterable(map(steps, ix))
                  for d, ix in by_card.items()}
         if self._interleaves(sites):
-            self.pipe.interleaved += 1
             _in_turn(cards)
             return
         for stepper in cards.values():
@@ -808,18 +852,45 @@ class _Contour:
             yield
 
 
-def _get_pipeline(mat_a, mat_b, backend, dims):
-    """(the cached pipeline of the pencil, whether this call built it)."""
-    key = (_fingerprint(mat_a), _fingerprint(mat_b), backend,
+def _get_pipeline(mat_a, mat_b, backend, dims, check=False,
+                  where="geigsh"):
+    """(the cached pipeline of the pencil, whether this call built it).
+
+    The one place that says which pencil a call solves.  A is fingerprinted
+    once.  B is None for the identity (``eigsh``), else asked once whether
+    it is the identity: the identity is keyed by its shape and dtype, any
+    other B by its fingerprint.  With ``check``, A and (unless it is the
+    identity) B are checked Hermitian, ``where`` naming the caller in the
+    error, unless the cached pipeline was checked: before any ``analyze``,
+    so a pencil that fails leaves nothing in the cache."""
+    from sparse_linear_tpu_torch.formats.matrix import eye
+
+    n = mat_a.shape[0]
+    if mat_b is None:
+        b_identity = True
+        b_key = ((n, n), str(real_of(mat_a.dtype)))
+    else:
+        b_identity = _is_identity(mat_b)
+        b_key = ((tuple(mat_b.shape), str(mat_b.dtype)) if b_identity
+                 else _fingerprint(mat_b))
+    key = (_fingerprint(mat_a), b_key, backend,
            None if dims is None else tuple(dims), str(mat_a.data.device))
     pipe = _PIPELINE_CACHE.get(key)
-    if pipe is not None:
-        return pipe, False
-    pipe = _Pipeline(mat_a, mat_b, backend, dims)
-    if len(_PIPELINE_CACHE) >= _PIPELINE_CACHE_MAX:
-        _drop(_PIPELINE_CACHE.pop(next(iter(_PIPELINE_CACHE))))
-    _PIPELINE_CACHE[key] = pipe
-    return pipe, True
+    if check and (pipe is None or not pipe.checked):
+        _check_hermitian(mat_a, "A", where)
+        if not b_identity:
+            _check_hermitian(mat_b, "B", where)
+    fresh = pipe is None
+    if fresh:
+        if mat_b is None:
+            mat_b = eye(n, dtype=real_of(mat_a.dtype),
+                        device=mat_a.data.device)
+        pipe = _Pipeline(mat_a, mat_b, backend, dims, b_identity)
+        if len(_PIPELINE_CACHE) >= _PIPELINE_CACHE_MAX:
+            _drop(_PIPELINE_CACHE.pop(next(iter(_PIPELINE_CACHE))))
+        _PIPELINE_CACHE[key] = pipe
+    pipe.checked = pipe.checked or check
+    return pipe, fresh
 
 
 def _refine_default(params, pipe) -> int:
@@ -945,9 +1016,9 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
     ``EigResult``; fills :data:`last_run`.  ``shards``: the devices of a
     mesh's contour axis (the "sharded" contour), or None; ``rows``: the
     devices of its rows axis when it has more than one shard (the
-    row-sharded subspace), or None.  The random blocks are drawn whole on
-    the pipeline's device, as without ``rows``, and then split, so both
-    runs start from the same subspace."""
+    row-sharded subspace), or None.  ``mat_b`` None is the identity.  The
+    random blocks are drawn whole on the pipeline's device, as without
+    ``rows``, and then split, so both runs start from the same subspace."""
     from sparse_linear_tpu_torch.dist.mesh import Mesh
     from sparse_linear_tpu_torch.dist.sharded import ShardedBlock
     from sparse_linear_tpu_torch.eig.feast import (
@@ -958,7 +1029,8 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
 
     emin, emax = float(interval[0]), float(interval[1])
     n = mat_a.shape[0]
-    pipe, fresh = _get_pipeline(mat_a, mat_b, params.backend, params.dims)
+    pipe, fresh = _get_pipeline(mat_a, mat_b, params.backend, params.dims,
+                                params.check_hermitian)
     dev = pipe.device
     a_op, b_op = pipe.a_op, pipe.b_op
     row_mesh, row_sizes = None, ()
@@ -968,7 +1040,7 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
         row_sizes = [(d, -(-n // len(rows))) for d in row_mesh.shards("rows")]
     z, sigma = _contour(emin, emax, params.contour_points,
                         kind=params.quadrature)
-    exchanged, interleaved = pipe.exchanged, pipe.interleaved
+    exchanged = pipe.exchanged
     contour = pipe.contour(z, sigma, m0, params.contour_batching, shards,
                            row_sizes)
     refine_n = _refine_default(params, pipe)
@@ -1002,7 +1074,6 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
     sel = np.zeros((0,), dtype=np.int64)
     loops_done = stalls = 0
     prev = None
-    b_ident = b_op.route == "identity"
 
     for loop in range(params.max_loops):
         loops_done = loop + 1
@@ -1033,7 +1104,7 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
             x = _times(qw, coeff)
             del qw
             lam_k = np.real(lam)[:m_kept]
-            bx = x if b_ident else b_op(x)
+            bx = b_op(x)
             lam_t = torch.as_tensor(lam_k, dtype=rdt, device=dev)
             rn = _col_norms(a_op(x) - bx * lam_t[None, :])
             del bx
@@ -1111,7 +1182,6 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
         # every card's work ended before the last loop's synchronised psum
         last_run["cards"] = contour.take_cards()
         last_run["exchange_bytes"] = pipe.exchanged - exchanged
-    last_run["interleaved"] = pipe.interleaved - interleaved
     if len(lam_np) == m0:
         # every Ritz pair inside: the subspace is (or may be) too small to
         # hold the invariant subspace (Feast.hs:252-257)
@@ -1128,10 +1198,12 @@ def geigsh_pipeline(m0, interval, mat_a, mat_b, params, guess=None,
 
 def count_pipeline(interval, mat_a, mat_b, params, x_np) -> float:
     """(1/s) Re sum_i x_i^H q_i with q one filter application to the s
-    probes ``x_np`` (n, s), on the pencil's cached contour factors."""
+    probes ``x_np`` (n, s), on the pencil's cached contour factors
+    (``mat_b`` None is the identity)."""
     from sparse_linear_tpu_torch.eig.feast import _contour
 
-    pipe, _ = _get_pipeline(mat_a, mat_b, params.backend, params.dims)
+    pipe, _ = _get_pipeline(mat_a, mat_b, params.backend, params.dims,
+                            params.check_hermitian, "count_eigenvalues")
     z, sigma = _contour(float(interval[0]), float(interval[1]),
                         params.contour_points, kind=params.quadrature)
     s = x_np.shape[1]

@@ -1421,6 +1421,13 @@ def test_sharded_feast_runs_the_cards_in_turn(dev, monkeypatch):
             for _ in stepper:
                 pass
 
+    phases = []
+    real = pipeline._in_turn
+
+    def in_turn(steps):
+        phases.append(len(steps))
+        real(steps)
+
     runs = []
     was = torch.are_deterministic_algorithms_enabled()
     warn = torch.is_deterministic_algorithms_warn_only_enabled()
@@ -1428,7 +1435,7 @@ def test_sharded_feast_runs_the_cards_in_turn(dev, monkeypatch):
         torch.use_deterministic_algorithms(True, warn_only=True)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)
-            for drain in (pipeline._in_turn, serial):
+            for drain in (in_turn, serial):
                 pipeline.clear_pipeline_cache()
                 monkeypatch.setattr(pipeline, "_in_turn", drain)
                 res = eigsh(40, (0.0, emax), a, p,
@@ -1443,7 +1450,7 @@ def test_sharded_feast_runs_the_cards_in_turn(dev, monkeypatch):
     assert torch.equal(got.vectors, want.vectors)
     assert got.iterations == want.iterations == len(run["loops"])
     assert run["exchange_bytes"] == drained["exchange_bytes"]
-    assert run["interleaved"] == 1 + got.iterations
+    assert phases == [cards] * (1 + got.iterations)
     assert len(got.values) == k
     np.testing.assert_allclose(got.values, single.values, rtol=0,
                                atol=1e-12)

@@ -810,7 +810,7 @@ def test_sharded_contour_modes_agree(cp_mesh, batching, monkeypatch):
     assert pipeline.last_run["shard_mode"] == {"vmap": "batched",
                                                "loop": "per-node"}[batching]
     np.testing.assert_allclose(res.values, ref.values, rtol=0, atol=1e-12)
-    monkeypatch.setenv("SLT_FEAST_MEMORY_BUDGET", "1")
+    monkeypatch.setattr(pipeline, "_budget", lambda device, held=0.0: 1.0)
     res = tfeast.eigsh(8, (0.5, 1.5), a, tfeast.FeastParams(**P1),
                        mesh=card_mesh(2, ("cp",), device="cpu"))
     assert pipeline.last_run["shard_mode"] == "streaming"

@@ -364,6 +364,103 @@ def test_non_hermitian_rejected():
         count_eigenvalues((0.0, 1.0), a)
 
 
+def _bidiagonal(n=30):
+    """A non-symmetric A with a real spectrum on [1, 3]: upper
+    bidiagonal."""
+    rng = np.random.default_rng(48)
+    ad = np.diag(np.linspace(1.0, 3.0, n)) + np.diag(
+        rng.uniform(0.1, 0.5, n - 1), 1)
+    return ad, st.from_dense(torch.as_tensor(ad))
+
+
+@pytest.mark.parametrize("call,message", [
+    ("eigsh", "geigsh: matrix A is not hermitian"),
+    ("geigsh", "geigsh: matrix B is not hermitian"),
+    ("count", "count_eigenvalues: matrix A is not hermitian")])
+def test_non_hermitian_raises_before_any_analyze(monkeypatch, call,
+                                                 message):
+    """The Hermitian check runs before the pipeline's ``analyze``: the
+    parent's error, and nothing left in the pipeline cache."""
+    from sparse_linear_tpu_torch.solve import api
+
+    ad, a = _bidiagonal()
+    spd = st.from_dense(torch.as_tensor(np.diag(np.linspace(1.0, 2.0, 30))))
+    analyzed = []
+    real = api.analyze
+    monkeypatch.setattr(api, "analyze",
+                        lambda *args, **kw: analyzed.append(1)
+                        or real(*args, **kw))
+    pipeline.clear_pipeline_cache()
+    with pytest.raises(ValueError, match=f"^{message}$"):
+        if call == "eigsh":
+            eigsh(8, (0.9, 2.0), a)
+        elif call == "geigsh":
+            geigsh(8, (0.9, 2.0), spd, a)
+        else:
+            count_eigenvalues((0.9, 2.0), a)
+    assert analyzed == [] and pipeline._PIPELINE_CACHE == {}
+
+
+@pytest.mark.parametrize("generalized", [False, True],
+                         ids=["eigsh", "geigsh"])
+def test_a_cached_pencil_is_checked_once(monkeypatch, generalized):
+    """The Hermitian verdict lives on the cached pipeline: a second call on
+    the same pencil, another window, checks nothing again.  An identity B
+    is never checked."""
+    a = tgrids.laplacian_1d(24, dtype=torch.float64, device="cpu")
+    b = st.from_dense(torch.as_tensor(np.diag(np.linspace(1.0, 2.0, 24))))
+    checked = []
+    real = pipeline._check_hermitian
+
+    def spy(mat, name, where):
+        checked.append(name)
+        real(mat, name, where)
+
+    monkeypatch.setattr(pipeline, "_check_hermitian", spy)
+    pipeline.clear_pipeline_cache()
+    for window in ((0.2, 1.0), (0.3, 1.2)):
+        if generalized:
+            res = geigsh(8, window, a, b, FeastParams(tol=1e-10))
+        else:
+            res = eigsh(8, window, a, FeastParams(tol=1e-10))
+        assert res.info == INFO_OK
+    assert checked == (["A", "B"] if generalized else ["A"])
+    assert len(pipeline._PIPELINE_CACHE) == 1
+
+
+def test_a_pencil_built_unchecked_is_checked_when_asked():
+    """A pipeline first built with check_hermitian=False is checked by the
+    next call that asks for the check, and a non-Hermitian A raises."""
+    _, a = _bidiagonal()
+    pipeline.clear_pipeline_cache()
+    eigsh(8, (0.9, 2.0), a, FeastParams(check_hermitian=False, max_loops=2))
+    assert len(pipeline._PIPELINE_CACHE) == 1
+    with pytest.raises(ValueError, match="^geigsh: matrix A is not "
+                                         "hermitian$"):
+        eigsh(8, (0.9, 2.0), a, FeastParams(max_loops=2))
+    with pytest.raises(ValueError, match="^count_eigenvalues: matrix A"):
+        count_eigenvalues((0.9, 2.0), a, params=FeastParams(max_loops=2))
+
+
+def test_eigsh_and_geigsh_with_the_identity_share_one_pipeline():
+    """eigsh(A) and geigsh(A, I) are one pencil: one cached pipeline, one
+    contour, bitwise the same answers."""
+    a = _poisson_port()
+    p = FeastParams(tol=1e-10, backend="multifrontal", dims=(G, G))
+    pipeline.clear_pipeline_cache()
+    first = eigsh(24, (0.0, 1.5), a, p)
+    (pipe,) = pipeline._PIPELINE_CACHE.values()
+    again = geigsh(24, (0.0, 1.5), a,
+                   st.eye(G * G, dtype=torch.float64, device="cpu"), p)
+    assert list(pipeline._PIPELINE_CACHE.values()) == [pipe]
+    assert len(pipe.contours) == 1
+    assert pipeline.last_run["routes"] == ("dia", "identity")
+    assert first.info == INFO_OK and first.n_found > 0
+    np.testing.assert_array_equal(again.values, first.values)
+    assert torch.equal(again.vectors, first.vectors)
+    assert again.iterations == first.iterations
+
+
 def test_invalid_args():
     a = tgrids.laplacian_1d(4, dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="interval"):
@@ -397,7 +494,8 @@ def test_contour_modes_agree(monkeypatch, dtype):
     for mode, batching in (("batched", "vmap"), ("per-node", "loop"),
                            ("streaming", "auto")):
         if mode == "streaming":
-            monkeypatch.setenv("SLT_FEAST_MEMORY_BUDGET", "1")
+            monkeypatch.setattr(pipeline, "_budget",
+                                lambda device, held=0.0: 1.0)
         res = eigsh(24, (0.0, 1.5), a,
                     FeastParams(tol=1e-11, backend="multifrontal",
                                 dims=(G, G), contour_batching=batching))
@@ -443,7 +541,8 @@ def test_plan_by_bytes(monkeypatch):
     for budget, mode in ((need["batched"], "batched"),
                          (need["per-node"], "per-node"),
                          (need["per-node"] - 1, "streaming")):
-        monkeypatch.setenv("SLT_FEAST_MEMORY_BUDGET", str(budget))
+        monkeypatch.setattr(pipeline, "_budget",
+                            lambda device, held=0.0, b=budget: float(b))
         assert pipe.plan(8, 80, "auto")[0] == mode
     assert pipe.plan(8, 80, "vmap")[0] == "batched"
     assert pipe.plan(8, 80, "loop")[0] == "per-node"
@@ -452,8 +551,7 @@ def test_plan_by_bytes(monkeypatch):
 def test_routes_of_the_structured_operators():
     a = _poisson_port()
     assert pipeline._structured_op(a).route == "dia"
-    assert pipeline._structured_op(st.eye(5, dtype=torch.float64,
-                                          device="cpu")).route == "identity"
+    assert pipeline._structured_op(None).route == "identity"
     g = 8
     coo = tgrids.poisson_2d(g, dtype=torch.float64, device="cpu").tocoo()
     perm = torch.as_tensor(np.random.default_rng(44).permutation(g * g))

@@ -236,7 +236,6 @@ def test_cards_in_turn_are_bitwise_the_serial_drain(grid, batching,
     assert torch.equal(got.vectors, want.vectors)
     assert got.iterations == want.iterations == len(run["loops"])
     assert run["exchange_bytes"] == serial["exchange_bytes"]
-    assert run["interleaved"] == serial["interleaved"] == 1 + got.iterations
 
 
 def test_cards_launch_in_turn_after_every_copy_to_them(monkeypatch):
@@ -321,17 +320,31 @@ def test_cards_launch_in_turn_after_every_copy_to_them(monkeypatch):
         before = hi + 1
 
 
-def test_interleaved_counts_the_phases_run_in_turn():
+def test_the_phases_run_in_turn_only_across_cards(monkeypatch):
+    """``_in_turn`` runs each phase of a contour whose groups sit on more
+    than one card: the factorization and every loop's filter cold, the
+    filters alone once the contour is cached, and nothing without a mesh
+    or with four shards on one device."""
     grid = [8, 8, 8]
     a, _, _, window = _problem(grid)
+    calls = []
+    real = pipeline._in_turn
+
+    def counted(steps):
+        calls.append(len(steps))
+        real(steps)
+
+    monkeypatch.setattr(pipeline, "_in_turn", counted)
     res = feast.eigsh(M0, window, a, _params(grid), mesh=_four_cards())
-    assert pipeline.last_run["interleaved"] == 1 + res.iterations
+    assert calls == [4] * (1 + res.iterations)
     # the contour cached: only the filters run in turn
+    calls.clear()
     res = feast.eigsh(M0, window, a, _params(grid), mesh=_four_cards())
-    assert pipeline.last_run["interleaved"] == res.iterations
+    assert calls == [4] * res.iterations
     for mesh in (None, card_mesh(4, ("cp",), device="cpu")):
+        calls.clear()
         feast.eigsh(M0, _narrower(window, 0.9), a, _params(grid), mesh=mesh)
-        assert pipeline.last_run["interleaved"] == 0
+        assert calls == []
 
 
 def test_stepped_factors_keep_full_f32_to_their_own_steps(monkeypatch):

@@ -114,25 +114,37 @@ def _identity():
                         torch.ones(N * N, dtype=torch.float64)).tocsr()
 
 
-@pytest.mark.parametrize("generalized", [False, True],
-                         ids=["eigsh", "geigsh"])
-def test_feast_opens_one_call_span_and_four_fingerprints(generalized):
+def _diagonal():
+    ar = torch.arange(N * N)
+    return from_triples((N * N, N * N), ar, ar,
+                        torch.linspace(1.0, 2.0, N * N,
+                                       dtype=torch.float64)).tocsr()
+
+
+@pytest.mark.parametrize("b_kind,fingerprints", [
+    (None, 1), ("identity", 1), ("diagonal", 2)],
+    ids=["eigsh", "geigsh identity", "geigsh diagonal"])
+def test_feast_opens_one_call_span_and_a_fingerprint_a_matrix(
+        b_kind, fingerprints):
     from sparse_linear_tpu_torch.eig import pipeline
 
-    a, b = _op(), _identity()
-    if generalized:
-        def call():
-            return feast.geigsh(10, (0.0, 0.3), a, b, _params())
-    else:
+    a = _op()
+    if b_kind is None:
         def call():
             return feast.eigsh(10, (0.0, 0.3), a, _params())
+    else:
+        b = _identity() if b_kind == "identity" else _diagonal()
+
+        def call():
+            return feast.geigsh(10, (0.0, 0.3), a, b, _params())
     pipeline.clear_pipeline_cache()
     res, events = _traced(call)
     assert res.info == feast.INFO_OK and res.n_found > 0
     count = Counter(e.name for e in events)
-    # the Hermitian checks of A and B, then the pipeline cache's key
+    # the pipeline cache's key: A's fingerprint, and B's unless it is the
+    # identity
     assert count["slt.feast.eigsh"] == 1
-    assert count["slt.feast.fingerprint"] == 4
+    assert count["slt.feast.fingerprint"] == fingerprints
     assert count["slt.feast.filter"] == count["slt.feast.rr"] == \
         res.iterations
     assert count["slt.feast.eigh"] == 2 * res.iterations
