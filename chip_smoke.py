@@ -36,18 +36,26 @@ NVIDIA GPU:
    or X, each part bitwise the real kernel; each result bitwise on a
    second call.
 4. Main path at full size, with the kernels' launch counts set to 0 before
-   and read after: 2048**2 Poisson triples on the card -> from_triples ->
+   and read after.  First CG's three vector kernels (``cg_step``), each
+   against its plain version from one state, in f32, f64, c64 and c128 at
+   2048**2 and in f64 at 216**3 (``cg_step_parity``: scalars and vectors
+   within 1e-5 / 1e-12 relative, iteration and stop flag exact).  Then
+   2048**2 Poisson triples on the card -> from_triples ->
    tocsr -> check_matrix -> csr_to_dia; the top of the spectrum by power
    iteration through the one-launch chain (against the analytic value); CG
-   in f64 to 1e-10, with the true residual through the plain CSR SpMV
-   <= 1e-9; the entry step at grid 2048 in f32 against the plain version.
+   in f64 to 1e-10 (its vector steps the three ``cg_step`` kernels, each
+   launched once an iteration queued; the iterations queued and the host's
+   reads printed beside the count), with
+   the true residual through the plain CSR SpMV <= 1e-9; the entry step at
+   grid 2048 in f32 against the plain version.
 5. Times: each kernel, its plain version and the one PyTorch call that
    computes the same function (cuSPARSE through a torch sparse CSR tensor
    of the same operator; none for the chain) from CUDA events (median of
    24, L2 flushed before each call), in f32 and f64, with GB/s, beside the
    card's name and power limit, and each kernel's bound: the larger of its
    bytes (each input read once, each output written once) over 3.35 TB/s
-   and its flops over 67 (f32) or 34 (f64) TFLOP/s.  Kernel D also at
+   and its flops over 67 (f32) or 34 (f64) TFLOP/s.  CG's three vector
+   kernels in f64 at 216**3 (cg-grid's length).  Kernel D also at
    FEAST's m = 80 and on the stencil-order 2048**2 operator packed as WELL
    (each with its plain version, cuSPARSE SpMM, well_spmm_planes'
    ``planes_ms``, the copy of X that it holds, and, printed, the gather
@@ -208,7 +216,8 @@ phase 9; ``launches_phase10`` beside the f64 ``dia_spmm`` and
 ``well_spmm`` entries' own; ``launches_phase12`` beside the ``dia_spmv``
 (f32), f64 ``well_spmv`` and f64 ``dia_spmm`` entries', and
 ``launches_phase12h`` (phase 12 (h)) beside the f64 ``dia_spmm`` and
-``well_spmm`` entries'), then as the last line
+``well_spmm`` entries'; ``cg_pq``, ``cg_update`` and ``cg_direction`` timed
+at 216**3 in f64, launches from phase 4's CG), then as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
 is then non-zero and the last line is not printed.  Without a CUDA device,
 or without the package beside this script, it fails before any result.
@@ -234,8 +243,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SPMV_SOURCE = "sparse_linear_tpu_torch/csrc/dia_spmv.cu"
 WELL_SOURCE = "sparse_linear_tpu_torch/csrc/well_spmv.cu"
+CG_SOURCE = "sparse_linear_tpu_torch/csrc/cg_step.cu"
 XLA_SPMV = "sparse_linear_tpu/kernels/spmv.py"
 PALLAS = "sparse_linear_tpu/kernels/spmv_pallas.py"
+JAX_CG = "sparse_linear_tpu/solve/cg.py"
 PALLAS_WELL = "sparse_linear_tpu/kernels/spmv_well.py"
 PALLAS_WELL64 = "sparse_linear_tpu/kernels/spmv_well64.py"
 
@@ -294,6 +305,74 @@ def digest(t) -> str:
 
     data = t.detach().contiguous().view(-1).view(torch.uint8).cpu()
     return hashlib.blake2b(data.numpy(), digest_size=8).hexdigest()
+
+
+def cg_step_vectors(dev, gen, n, dtype, scale=1.0):
+    """x, r, p and q = scale D p (D a random positive diagonal, so that
+    Re(p^H q) sums positive terms), and a state that never stops (target
+    0), for the ``cg_step`` kernels on card vectors of length n."""
+    import torch
+
+    from sparse_linear_tpu_torch.dtypes import real_of
+    from sparse_linear_tpu_torch.kernels import cg_step
+
+    x, r, p = (torch.randn(n, dtype=dtype, device=dev, generator=gen)
+               for _ in range(3))
+    d = 1 + torch.rand(n, dtype=real_of(dtype), device=dev, generator=gen)
+    state = cg_step.cg_state(r, torch.zeros((), dtype=torch.float64,
+                                            device=dev))
+    return x, r, p, p * (scale * d), state
+
+
+def cg_step_parity(dev, gen, n, dtype) -> dict:
+    """Each of the three ``cg_step`` kernels against its plain version on
+    card vectors of length n, from the same state: the scalars and
+    vectors it writes within 1e-5 (f32, c64) or 1e-12 (f64, c128) of the
+    plain ones, relative to their largest, the iteration count and the
+    stop flag exact.  Returns {kernel: max abs err over the vectors it
+    writes and alpha or beta}; gamma, a sum of n terms, is held to the
+    relative tolerance alone."""
+    import torch
+
+    from sparse_linear_tpu_torch.kernels import cg_step as cs
+
+    rtol = 1e-5 if dtype in (torch.float32, torch.complex64) else 1e-12
+    x, r, p, q, state = cg_step_vectors(dev, gen, n, dtype)
+    ref = state.clone()
+    errs = {}
+
+    def compare(kernel, pairs):
+        worst = 0.0
+        for what, got, want in pairs:
+            err, rel = max_err(got, want)
+            require(rel <= rtol, f"{kernel} {dtype} n={n}: {what} max rel "
+                    f"err {rel:.3e} > {rtol}")
+            if what != "gamma":
+                worst = max(worst, err)
+        errs[kernel] = worst
+
+    cs.cg_pq(p, q, state)
+    cs.cg_pq_plain(p, q, ref)
+    compare("cg_pq", [("alpha", state[cs.ALPHA], ref[cs.ALPHA])])
+    ref[cs.ALPHA] = state[cs.ALPHA]
+    xk, rk = x.clone(), r.clone()
+    cs.cg_update(xk, rk, p, q, state)
+    cs.cg_update_plain(x, r, p, q, ref)
+    compare("cg_update", [("x", xk, x), ("r", rk, r),
+                          ("gamma", state[cs.GAMMA], ref[cs.GAMMA]),
+                          ("beta", state[cs.BETA], ref[cs.BETA])])
+    require([float(state[s]) for s in (cs.ITER, cs.STOP)] == [1.0, 0.0]
+            == [float(ref[s]) for s in (cs.ITER, cs.STOP)],
+            f"cg_update {dtype} n={n}: iteration or stop flag")
+    ref[cs.BETA] = state[cs.BETA]
+    pk = p.clone()
+    cs.cg_direction(pk, r, state)
+    cs.cg_direction_plain(p, r, ref)
+    compare("cg_direction", [("p", pk, p)])
+    print(f"phase 4 parity cg_step {dtype} n={n}: max abs err " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + f" (rtol {rtol})",
+        flush=True)
+    return errs
 
 
 def direct_solver_phase(dev, card: str, seed: int,
@@ -1180,7 +1259,8 @@ def complex_phase(dev, card, seed, b_real, dia_its, well_its,
         true_res = float(torch.linalg.vector_norm(
             b - st.spmv(csr, res.x))) / bnorm
         print(f"phase 9 cg c128 {label}: {res.iterations} iterations "
-              f"({phase_its}), true residual (CSR spmv) {true_res:.3e} "
+              f"({phase_its}; {res.launched} queued, {res.host_reads} host "
+              f"reads), true residual (CSR spmv) {true_res:.3e} "
               f"(tol 1e-9), {cg_s:.3f} s, "
               f"{cg_s / max(res.iterations, 1) * 1e3:.4f} ms/iteration, "
               f"{counter.__name__} launches {counter.launches}", flush=True)
@@ -2537,7 +2617,7 @@ def main() -> None:
     import sparse_linear_tpu_torch as st
     from sparse_linear_tpu_torch.entry import entry
     from sparse_linear_tpu_torch.formats.structured import DIA, csr_to_dia
-    from sparse_linear_tpu_torch.kernels import _build
+    from sparse_linear_tpu_torch.kernels import _build, cg_step
     from sparse_linear_tpu_torch.kernels import spmv_well as spmv_well_module
     from sparse_linear_tpu_torch.kernels.spmv import (
         dia_spmm,
@@ -2566,6 +2646,7 @@ def main() -> None:
     from sparse_linear_tpu_torch.solve.cg import cg
     from sparse_linear_tpu_torch.utils.grids import poisson_2d, poisson_3d
 
+    cg_steps = (cg_step.cg_pq, cg_step.cg_update, cg_step.cg_direction)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -2848,6 +2929,16 @@ def main() -> None:
     # ------------------------------------------- 4. main path, full size
     g = 2048
     n = g * g
+    # CG's three vector kernels against their plain versions at the CG
+    # phases' length (4 and 6 in f64, 9 in c128) and at 216**3 (cg-grid's)
+    sgen = torch.Generator(device=dev).manual_seed(args.seed + 10)
+    cg_step_abs = {}
+    for length, dtype in ((n, f32), (n, f64), (n, torch.complex64),
+                          (n, torch.complex128), (216 ** 3, f64)):
+        for kernel, err in cg_step_parity(dev, sgen, length, dtype).items():
+            cg_step_abs[kernel] = max(cg_step_abs.get(kernel, 0.0), err)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     dia_spmv_kernel.launches = 0
     dia_spmv_chain.launches = 0
@@ -2892,18 +2983,24 @@ def main() -> None:
 
     b = randn(n, f64)
     b_phase4 = b.cpu()  # phase 9 turns it by the gauge phases
+    for wrapper in cg_steps:
+        wrapper.launches = 0
     t0 = time.perf_counter()
     res = cg(dia.__matmul__, b, tol=1e-10, maxiter=40_000)
     torch.cuda.synchronize()
     cg_s = time.perf_counter() - t0
+    cg_launches = {w.__name__: w.launches for w in cg_steps}
     bnorm = float(torch.linalg.vector_norm(b))
     true_res = float(torch.linalg.vector_norm(b - st.spmv(csr, res.x))) / bnorm
     cg_res = float(res.residual_norm) / bnorm
-    print(f"phase 4 cg f64 2048^2: {res.iterations} iterations, recursive "
+    print(f"phase 4 cg f64 2048^2: {res.iterations} iterations ("
+          f"{res.launched} queued, {res.host_reads} host reads), recursive "
           f"residual {cg_res:.3e}, true residual (CSR spmv) {true_res:.3e} "
           f"(tol 1e-9), {cg_s:.3f} s, {cg_s / max(res.iterations, 1) * 1e3:.4f}"
-          f" ms/iteration", flush=True)
+          f" ms/iteration, launches {cg_launches}", flush=True)
     require(res.converged, "cg did not converge")
+    require(set(cg_launches.values()) == {res.launched},
+            f"cg_step launches {cg_launches}, {res.launched} queued")
     require(bool(torch.isfinite(res.x).all()), "cg returned non-finite x")
     require(true_res <= 1e-9, f"true residual {true_res}")
     cg_its = res.iterations
@@ -3058,6 +3155,26 @@ def main() -> None:
               f"{c_ms / 50:.4f} ms/step (previous design (PERF.md), f32: "
               f"0.0532 ms/step)", flush=True)
         del a, x
+
+    # CG's vector kernels at cg-grid's length in f64, each in turns with
+    # its plain version, on a state that never stops (target 0); bytes:
+    # the vectors each reads and writes once
+    n_c = 216 ** 3
+    xc, rc, pc, qc, sc = cg_step_vectors(dev, sgen, n_c, f64)
+    for name, kernel, plain, passes, flops in (
+            ("cg_pq", lambda: cg_step.cg_pq(pc, qc, sc),
+             lambda: cg_step.cg_pq_plain(pc, qc, sc), 2, 2),
+            ("cg_update", lambda: cg_step.cg_update(xc, rc, pc, qc, sc),
+             lambda: cg_step.cg_update_plain(xc, rc, pc, qc, sc), 6, 6),
+            ("cg_direction", lambda: cg_step.cg_direction(pc, rc, sc),
+             lambda: cg_step.cg_direction_plain(pc, rc, sc), 3, 2)):
+        k_ms, p_ms, _ = in_turns(plain, kernel)
+        record(name, f64, k_ms, p_ms, None, passes * n_c * 8, flops * n_c,
+               "none")
+    require(not sc[cg_step.STOP] and all(
+        bool(torch.isfinite(v).all()) for v in (xc, rc, pc)),
+        "cg_step timing left the state stopped or non-finite")
+    del xc, rc, pc, qc, sc
 
     def median_ms(f):
         return statistics.median(samples_ms(f) + samples_ms(f))
@@ -3412,7 +3529,8 @@ def main() -> None:
     cg_res = float(res.residual_norm) / bnorm
     well_its = res.iterations
     print(f"phase 6 cg f64 permuted 2048^2 through WELL: {well_its} "
-          f"iterations (DIA, phase 4: {cg_its}), recursive residual "
+          f"iterations (DIA, phase 4: {cg_its}; {res.launched} queued, "
+          f"{res.host_reads} host reads), recursive residual "
           f"{cg_res:.3e}, true residual (CSR spmv) {true_res:.3e} (tol 1e-9), "
           f"{cg_s:.3f} s, {cg_s / max(well_its, 1) * 1e3:.4f} ms/iteration",
           flush=True)
@@ -3575,6 +3693,22 @@ def main() -> None:
     spmm_dia_entry["launches_phase12h"] = (
         multi["launches_h"]["dia_spmm_kernel"])
 
+    def cg_entry(name):
+        """A ``cg_step`` kernel's entry: its time at cg-grid's length,
+        its launches in phase 4's CG."""
+        t = times[f"{name} {f64}"]
+        return {"name": name, "route": "cuda", "source": CG_SOURCE,
+                "replaces": f"{JAX_CG}:76", "launches": cg_launches[name],
+                "max_abs_err": cg_step_abs[name],
+                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "bound_share", "library_ms",
+                                     "library")},
+                "shape": "216^3 f64 vectors (cg-grid's length), L2 flushed; "
+                         "launches from phase 4's CG; max_abs_err over "
+                         "f32, f64, c64 and c128 at 2048^2 and f64 at "
+                         "216^3; the JAX package's CG is one lax.while_loop "
+                         "that XLA fuses"}
+
     def with12(entry, wrapper):
         """The entry with its kernel's launches on phase 12's path."""
         entry["launches_phase12"] = multi["launches"][wrapper]
@@ -3634,6 +3768,9 @@ def main() -> None:
                  "192^2 WELL-route FEAST",
                  (f"{PALLAS_WELL}:385", f"{PALLAS_WELL}:515"),
                  label="well_spmm_c128"),
+        cg_entry("cg_pq"),
+        cg_entry("cg_update"),
+        cg_entry("cg_direction"),
     ], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

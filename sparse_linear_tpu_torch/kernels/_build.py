@@ -41,6 +41,9 @@ _CHAIN_ARGS = [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int,
 _WELL_SPMV_ARGS = [_P, _P, _P, _P, _P, _I64, ctypes.c_int, _P]
 _WELL_SPMM_ARGS = [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+_CG_PQ_ARGS = [_P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P]
+_CG_UPDATE_ARGS = [_P, _P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P]
+_CG_DIRECTION_ARGS = [_P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P]
 _TYPES = ("f32", "f64", "c64", "c128")
 _SIGNATURES = {
     **{f"slt_dia_spmv_{t}": _SPMV_ARGS for t in _TYPES},
@@ -49,6 +52,9 @@ _SIGNATURES = {
     "slt_dia_chain_f64": _CHAIN_ARGS,
     **{f"slt_well_spmv_{t}": _WELL_SPMV_ARGS for t in _TYPES},
     **{f"slt_well_spmm_{t}": _WELL_SPMM_ARGS for t in _TYPES},
+    **{f"slt_cg_pq_{t}": _CG_PQ_ARGS for t in _TYPES},
+    **{f"slt_cg_update_{t}": _CG_UPDATE_ARGS for t in _TYPES},
+    **{f"slt_cg_direction_{t}": _CG_DIRECTION_ARGS for t in _TYPES},
 }
 
 

@@ -17,6 +17,7 @@ from sparse_linear_tpu.solve import cg as jcg  # noqa: E402
 from sparse_linear_tpu.utils import grids as jgrids  # noqa: E402
 from sparse_linear_tpu_torch.entry import entry as tentry  # noqa: E402
 from sparse_linear_tpu_torch.solve import cg as tcg  # noqa: E402
+from sparse_linear_tpu_torch.utils import grids as tgrids  # noqa: E402
 from tests.torch_parity import np_of, to_port  # noqa: E402
 
 
@@ -101,3 +102,124 @@ def test_entry_matches_graft_entry():
     assert x_t.dtype == torch.float32 and x_t.shape == (64 * 64,)
     np.testing.assert_allclose(np_of(x_t), np_of(x_j), rtol=1e-5)
     np.testing.assert_allclose(float(rn_t), float(rn_j), rtol=1e-5)
+
+
+# --------------------------------------------- the chunked loop (no m_inv)
+
+
+def _poisson(which):
+    if which == "p2d_32":
+        return tgrids.poisson_2d(32, dtype=torch.float64, fmt="dia",
+                                 device="cpu")
+    return tgrids.poisson_3d(8, dtype=torch.float64, fmt="dia", device="cpu")
+
+
+def _per_iteration(a, b, **kw):
+    """The per-iteration loop on the same call: an identity m_inv takes
+    it, and with z = r it computes what the unpreconditioned loop does."""
+    return tcg.cg(a.__matmul__, b, m_inv=lambda r: r, **kw)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 64])
+@pytest.mark.parametrize("which", ["p2d_32", "p3d_8"])
+def test_chunked_loop_is_the_per_iteration_loop(monkeypatch, which, k):
+    """Chunks of k iterations with the plain steps stop at exactly the
+    per-iteration loop's iteration with bitwise its x and ||r||; the
+    host reads once a chunk (chunk j's copy once j+1 is queued) and once
+    at the end."""
+    monkeypatch.setattr(tcg, "_chunk", lambda readings, launched, t: k)
+    a = _poisson(which)
+    b = torch.as_tensor(np.random.default_rng(44).standard_normal(
+        a.shape[0]))
+    ref = _per_iteration(a, b, tol=1e-10, maxiter=2000)
+    res = tcg.cg(a.__matmul__, b, tol=1e-10, maxiter=2000)
+    assert res.iterations == ref.iterations > 0
+    assert torch.equal(res.x, ref.x)
+    assert torch.equal(res.residual_norm, ref.residual_norm)
+    assert res.converged and ref.converged
+    chunks = -(-res.iterations // k)  # the chunk whose copy shows the stop
+    assert res.launched == (chunks + 1) * k >= res.iterations
+    assert res.host_reads == chunks + 1
+    # the per-iteration loop: ||b||, a test an iteration and one more, the
+    # verdict
+    assert ref.host_reads == ref.iterations + 3
+    assert ref.launched == ref.iterations
+
+
+@pytest.mark.parametrize("case", ["x0_solves", "maxiter_first", "zero_b"])
+def test_chunked_loop_edge_cases(case):
+    """0 iterations where x0 already solves the system or b = 0 (the stop
+    flag is set by the first r·r; two chunks are queued before the host
+    sees it), and maxiter below the stop (one chunk, read only at the
+    end); each bitwise the per-iteration loop."""
+    a = tgrids.poisson_2d(16, dtype=torch.float64, fmt="dia", device="cpu")
+    rng = np.random.default_rng(45)
+    kw = {"tol": 1e-10, "maxiter": 1000}
+    x0 = None
+    if case == "x0_solves":
+        # small integers: A x0 is exact, so r = b - A x0 is exactly 0
+        x0 = torch.as_tensor(rng.integers(-3, 4, 256).astype(np.float64))
+        b = a @ x0
+    elif case == "zero_b":
+        b = torch.zeros(256, dtype=torch.float64)
+    else:
+        b = torch.as_tensor(rng.standard_normal(256))
+        kw = {"tol": 1e-12, "maxiter": 5}
+    res = tcg.cg(a.__matmul__, b, x0, **kw)
+    ref = tcg.cg(a.__matmul__, b, x0, m_inv=lambda r: r, **kw)
+    assert res.iterations == ref.iterations
+    assert torch.equal(res.x, ref.x) and res.converged == ref.converged
+    if case == "maxiter_first":
+        assert res.iterations == res.launched == 5 and not res.converged
+        assert res.host_reads == 1
+    else:
+        assert res.iterations == 0 and res.converged
+        assert res.launched == 2 * tcg._FIRST and res.host_reads == 2
+        assert torch.equal(res.x, b if x0 is None else x0) or not b.any()
+
+
+def test_preconditioned_and_sharded_calls_keep_the_per_iteration_loop():
+    """An m_inv call and a ShardedVector call read ||r||² on the host every
+    iteration, as the counters show; the chunked loop reads a few times a
+    solve."""
+    from sparse_linear_tpu_torch.dist import ShardedVector, card_mesh
+    from sparse_linear_tpu_torch.dist.spmv import (
+        dia_spmv_sharded,
+        shard_dia_rows,
+    )
+
+    a = tgrids.poisson_2d(24, dtype=torch.float64, fmt="dia", device="cpu")
+    b = torch.as_tensor(np.random.default_rng(46).standard_normal(576))
+    plain = tcg.cg(a.__matmul__, b, tol=1e-10, maxiter=500)
+    pre = tcg.cg(a.__matmul__, b, tol=1e-10, maxiter=500,
+                 m_inv=lambda r: r * 0.25)
+    mesh = card_mesh(4, ("rows",), device="cpu")
+    sh = shard_dia_rows(a, mesh)
+    shd = tcg.cg(lambda v: dia_spmv_sharded(sh, v, mesh),
+                 ShardedVector.from_tensor(b, mesh), tol=1e-10, maxiter=500)
+    for res in (pre, shd):
+        assert res.converged
+        assert res.host_reads == res.iterations + 3
+        assert res.launched == res.iterations
+    assert shd.iterations == plain.iterations
+    assert plain.converged and plain.launched >= plain.iterations
+    assert plain.host_reads <= plain.iterations // 4
+
+
+@pytest.mark.parametrize("readings,launched,want", [
+    ([], 0, "first"),
+    ([(0, 1.0)], 8, "first"),
+    # gamma falls tenfold an iteration: 22 more to 1e-40, 8 of them
+    # queued, a quarter of the other 14
+    ([(0, 1e-10), (8, 1e-18)], 16, 3),
+    # far from the target: the largest chunk
+    ([(0, 1.0), (8, 0.5), (16, 0.25)], 24, "max"),
+    # at the target's door: the smallest
+    ([(0, 1.0), (100, 1e-39)], 108, "min"),
+    # gamma rose: no estimate, the largest chunk
+    ([(0, 1.0), (8, 2.0)], 16, "max"),
+])
+def test_chunk_sizes_follow_the_decay(readings, launched, want):
+    want = {"first": tcg._FIRST, "max": tcg._MAX, "min": tcg._MIN}.get(
+        want, want)
+    assert tcg._chunk(readings, launched, 1e-40) == want

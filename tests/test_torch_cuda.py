@@ -32,6 +32,7 @@ torch = pytest.importorskip("torch")
 import sparse_linear_tpu_torch as st  # noqa: E402
 from sparse_linear_tpu_torch.formats.structured import DIA  # noqa: E402
 from sparse_linear_tpu_torch.formats.well import csr_to_well  # noqa: E402
+from sparse_linear_tpu_torch.kernels import cg_step  # noqa: E402
 from sparse_linear_tpu_torch.kernels.spmv import dia_spmv  # noqa: E402
 from sparse_linear_tpu_torch.kernels.spmv import (  # noqa: E402
     dia_spmm,
@@ -60,6 +61,7 @@ from sparse_linear_tpu_torch.ops.spgemm import (  # noqa: E402
     spgemm_apply_well,
     spgemm_plan_well,
 )
+from sparse_linear_tpu_torch.solve import cg as cg_mod  # noqa: E402
 from sparse_linear_tpu_torch.utils.grids import poisson_2d, poisson_3d  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -1455,3 +1457,116 @@ def test_sharded_feast_runs_the_cards_in_turn(dev, monkeypatch):
     np.testing.assert_allclose(got.values, single.values, rtol=0,
                                atol=1e-12)
     np.testing.assert_allclose(got.values, lam[:k], rtol=1e-10)
+
+
+# ------------------------------------------------ CG's steps (cg_step.cu)
+
+CG_DTYPES = [torch.float32, torch.float64, torch.complex64, torch.complex128]
+CG_IDS = ["f32", "f64", "c64", "c128"]
+
+
+def _cg_vec(rng, n, dtype, dev):
+    if dtype.is_complex:
+        return _crandn(rng, n, dtype, dev)
+    return torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+
+
+def _cg_vectors(n, dtype, dev):
+    """x, r, p and q = D p for a positive diagonal D, so that Re(p^H q)
+    sums positive terms and its parity is to rounding alone."""
+    rng = np.random.default_rng(50)
+    x, r, p = (_cg_vec(rng, n, dtype, dev) for _ in range(3))
+    d = torch.as_tensor(1 + rng.random(n), device=dev).to(dtype)
+    return x, r, p, p * d
+
+
+@pytest.mark.parametrize("n", [1, 31, 2 ** 20 + 3])
+@pytest.mark.parametrize("dtype", CG_DTYPES, ids=CG_IDS)
+def test_cg_step_kernels_match_plain(dev, dtype, n):
+    """Each of the three kernels against its plain version, from the same
+    state: the scalars, x, r and p within the dtype's tolerance (the
+    kernels sum in double, in another order, and round x, r, p with one
+    fma); the iteration count and the stop flag exact."""
+    x, r, p, q = _cg_vectors(n, dtype, dev)
+    state = cg_step.cg_state(r, torch.zeros((), dtype=torch.float64,
+                                            device=dev))
+    ref = state.clone()
+    rtol = RTOL[dtype]
+    before = (cg_step.cg_pq.launches, cg_step.cg_update.launches,
+              cg_step.cg_direction.launches)
+    cg_step.cg_pq(p, q, state)
+    cg_step.cg_pq_plain(p, q, ref)
+    assert _rel(state[cg_step.ALPHA], ref[cg_step.ALPHA]) <= rtol
+    ref[cg_step.ALPHA] = state[cg_step.ALPHA]
+    xk, rk = x.clone(), r.clone()
+    cg_step.cg_update(xk, rk, p, q, state)
+    cg_step.cg_update_plain(x, r, p, q, ref)
+    assert _rel(xk, x) <= rtol and _rel(rk, r) <= rtol
+    for slot in (cg_step.GAMMA, cg_step.BETA):
+        assert _rel(state[slot], ref[slot]) <= rtol
+    for slot in (cg_step.ITER, cg_step.STOP, cg_step.TARGET):
+        assert float(state[slot]) == float(ref[slot])
+    assert float(state[cg_step.ITER]) == 1 and not state[cg_step.STOP]
+    ref[cg_step.BETA] = state[cg_step.BETA]
+    pk = p.clone()
+    cg_step.cg_direction(pk, r, state)
+    cg_step.cg_direction_plain(p, r, ref)
+    assert _rel(pk, p) <= rtol
+    assert (cg_step.cg_pq.launches, cg_step.cg_update.launches,
+            cg_step.cg_direction.launches) == tuple(b + 1 for b in before)
+    # the reduction ticket is back to zero for the next launch
+    assert float(state[cg_step.SLOTS - 1]) == 0.0
+
+
+@pytest.mark.parametrize("dtype", CG_DTYPES, ids=CG_IDS)
+def test_cg_step_kernels_do_nothing_after_the_stop(dev, dtype):
+    """With the stop flag set (gamma not above the target from the
+    start), the three kernels leave x, r, p and the state bitwise as
+    they were."""
+    x, r, p, q = _cg_vectors(4099, dtype, dev)
+    state = cg_step.cg_state(r, torch.tensor(float("inf"),
+                                             dtype=torch.float64, device=dev))
+    assert float(state[cg_step.STOP]) == 1
+    kept = [t.clone() for t in (x, r, p, state)]
+    for _ in range(3):
+        cg_step.cg_pq(p, q, state)
+        cg_step.cg_update(x, r, p, q, state)
+        cg_step.cg_direction(p, r, state)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((x, r, p, state), kept))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128],
+                         ids=["f64", "c128"])
+def test_cg_on_the_card_runs_the_kernels_and_repeats(dev, monkeypatch, dtype):
+    """A solve on the card goes through the kernels (their launch counts
+    move by the iterations queued), reads the host a few times, and is
+    bitwise repeatable; chunks of 1 and of 64 iterations stop at the same
+    iteration with bitwise the same x (the iterations queued after the
+    stop change nothing); the CPU loop agrees to rounding."""
+    a = poisson_3d(24, dtype=torch.float64, fmt="dia", device=dev)
+    b = _cg_vec(np.random.default_rng(51), 24 ** 3, dtype, dev)
+    before = (cg_step.cg_pq.launches, cg_step.cg_update.launches,
+              cg_step.cg_direction.launches)
+    one = cg_mod.cg(a.__matmul__, b, tol=1e-10, maxiter=2000)
+    torch.cuda.synchronize()
+    assert one.converged and one.launched >= one.iterations > 0
+    assert one.host_reads <= one.iterations // 4
+    assert (cg_step.cg_pq.launches, cg_step.cg_update.launches,
+            cg_step.cg_direction.launches) == tuple(
+                v + one.launched for v in before)
+    two = cg_mod.cg(a.__matmul__, b, tol=1e-10, maxiter=2000)
+    assert two.iterations == one.iterations and torch.equal(two.x, one.x)
+    runs = {}
+    for k in (1, 64):
+        monkeypatch.setattr(cg_mod, "_chunk", lambda rd, launched, t: k)
+        runs[k] = cg_mod.cg(a.__matmul__, b, tol=1e-10, maxiter=2000)
+    assert runs[1].iterations == runs[64].iterations == one.iterations
+    assert torch.equal(runs[1].x, one.x) and torch.equal(runs[64].x, one.x)
+    assert torch.equal(runs[1].residual_norm, runs[64].residual_norm)
+    assert runs[64].launched >= one.iterations + 1
+    monkeypatch.undo()
+    cpu = cg_mod.cg(a.to("cpu").__matmul__, b.cpu(), tol=1e-10,
+                    maxiter=2000)
+    assert abs(cpu.iterations - one.iterations) <= 1
+    assert _rel(one.x.cpu(), cpu.x) <= 1e-9
