@@ -26,7 +26,9 @@ Umfpack.hs:38-102).
   steps to a caller that advances several cards' loops in turn (FEAST's
   sharded contour, ``eig/pipeline.py``).
 * Spans (``utils.profiling.annotate``): ``slt.mf.analyze`` and its five
-  stages, ``slt.mf.factor`` with ``slt.mf.factor.level`` a tree level,
+  stages (whose host seconds ``analyze`` also records on the symbolic it
+  returns, ``MFSymbolic.stats``, with the schedule's counts),
+  ``slt.mf.factor`` with ``slt.mf.factor.level`` a tree level,
   ``slt.mf.solve`` with ``slt.mf.solve.level`` a level of each pass; on
   the replay path (below) ``slt.mf.capture`` around a capture and
   ``slt.mf.factor.replay`` / ``slt.mf.solve.replay`` around a replay, which
@@ -102,6 +104,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 import weakref
 
 import numpy as np
@@ -174,7 +177,14 @@ class MFSymbolic:
     Host object of numpy arrays, reused across numeric factorizations with
     the same pattern; its device index maps are built once per device
     (``_device_maps``), its replay plans once per (device, dtype, scale)
-    (:class:`_Plan`)."""
+    (:class:`_Plan`).
+
+    ``stats``, filled by ``analyze`` (empty on a symbolic built otherwise):
+    the host seconds of its five stages, ``order_s``, ``symmetrize_s``,
+    ``symbolic_s``, ``schedule_s`` and ``maps_s`` (host clock, no device
+    synchronisation), and the schedule's ``supernodes``, ``buckets`` and
+    ``levels``.  It lives on the artifact, so threads that analyze at once
+    keep their records apart."""
 
     backend = "multifrontal"
 
@@ -188,6 +198,7 @@ class MFSymbolic:
         self.a_entry_maps = a_entry_maps  # per-bucket A-entry scatter arrays
         self._dev_maps = {}
         self._plans = {}
+        self.stats = {}
 
 
 class MFFactors:
@@ -328,10 +339,20 @@ def analyze(mat, ordering: str = "auto", dims=None,
     Host work on numpy arrays: the matrix's pattern is copied to the host
     once.  The call is the span ``slt.mf.analyze``, its stages the spans
     ``slt.mf.analyze.order``, ``.symmetrize``, ``.symbolic``, ``.schedule``
-    and ``.maps``."""
+    and ``.maps``, whose host seconds the result's ``stats`` records."""
     with annotate("slt.mf.analyze"):
         return _analyze(mat, ordering, dims, relax_small, relax_frac, perm,
                         engine)
+
+
+@contextlib.contextmanager
+def _stage(stats: dict, name: str):
+    """The stage ``name`` of ``analyze``: its span, and its host seconds
+    into ``stats[name + "_s"]``."""
+    with annotate("slt.mf.analyze." + name):
+        t0 = time.perf_counter()
+        yield
+        stats[name + "_s"] = time.perf_counter() - t0
 
 
 def _analyze(mat, ordering, dims, relax_small, relax_frac, perm, engine):
@@ -347,8 +368,9 @@ def _analyze(mat, ordering, dims, relax_small, relax_frac, perm, engine):
         raise ValueError(f"unknown symbolic engine: {engine!r}")
     indptr = _np(mat.indptr).astype(np.int64)
     indices = _np(mat.indices)
+    stats = {}
 
-    with annotate("slt.mf.analyze.order"):
+    with _stage(stats, "order"):
         if perm is None:
             if ordering == "auto":
                 ordering = "nd" if dims is not None else "amd"
@@ -368,13 +390,13 @@ def _analyze(mat, ordering, dims, relax_small, relax_frac, perm, engine):
         if perm.shape != (n,):
             raise ValueError(f"analyze: perm must have shape ({n},)")
 
-    with annotate("slt.mf.analyze.symmetrize"):
+    with _stage(stats, "symmetrize"):
         ip, ix = _symmetrized_pattern(indptr, indices, n, perm)
-    with annotate("slt.mf.analyze.symbolic"):
+    with _stage(stats, "symbolic"):
         symbolic = native_symbolic if engine == "native" else python_symbolic
         sym = symbolic(n, ip, ix, relax_small, relax_frac)
 
-    with annotate("slt.mf.analyze.schedule"):
+    with _stage(stats, "schedule"):
         nsuper = sym["nsuper"]
         sup_start = sym["sup_start"].astype(np.int64)
         sup_parent = sym["sup_parent"]
@@ -411,7 +433,7 @@ def _analyze(mat, ordering, dims, relax_small, relax_frac, perm, engine):
             bucket_of_sup[ids] = bidx
             slot_of_sup[ids] = np.arange(len(ids))
 
-    with annotate("slt.mf.analyze.maps"):
+    with _stage(stats, "maps"):
         # ---- global locate structure (one searchsorted serves every query)
         below_ptr, below_rows, below_seg, gkey = _below_index(
             nsuper, n, rows_ptr, rows, nc_arr)
@@ -517,6 +539,8 @@ def _analyze(mat, ordering, dims, relax_small, relax_frac, perm, engine):
     # factor_batched() equilibrate value-sets without re-deriving them
     out.entry_rows = e_rows.astype(np.int32)
     out.entry_cols = e_cols.astype(np.int32)
+    out.stats = dict(stats, supernodes=int(nsuper), buckets=len(flat),
+                     levels=len(level_buckets))
     return out
 
 
