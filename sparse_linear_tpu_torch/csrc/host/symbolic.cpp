@@ -13,6 +13,8 @@
 // All indices are int32, the port's index width.
 //
 // C API (ctypes):
+//   nnz = slt_symmetrize(n, indptr, indices, perm, out_indptr, out_indices)
+//                               -> the input above, built from A's CSR
 //   handle = slt_analyze(n, indptr, indices, relax_small, relax_frac)
 //   slt_sizes(handle, out[6])   -> nsuper, rows_total, lnnz, tree_height,
 //                                  max_front, max_pivots
@@ -319,6 +321,66 @@ Symbolic* analyze(int n, const int* indptr, const int* indices,
 }  // namespace
 
 extern "C" {
+
+// The canonical CSR of P (A + A^T + I) P^T, P sending node perm[k] to k:
+// every row's columns sorted and unique, its diagonal present.  O(nnz + n),
+// with no sort: each entry is scattered to its row and to its column, one
+// counting-sort transpose puts every row's columns in ascending order (the
+// scattered pattern is symmetric, so its transpose has the same rows), and
+// repeats, now adjacent, are dropped as they arrive.  out_indices must hold
+// 2 nnz(A) + n entries; the pattern's own nnz, which it returns, are the
+// first ones.  Returns -1 when perm is not a permutation or an index lies
+// outside [0, n).
+int64_t slt_symmetrize(int n, const int64_t* indptr, const int* indices,
+                       const int* perm, int64_t* out_indptr,
+                       int* out_indices) {
+  std::vector<int> iperm(n, -1);
+  for (int k = 0; k < n; ++k) {
+    int v = perm[k];
+    if (v < 0 || v >= n || iperm[v] != -1) return -1;
+    iperm[v] = k;
+  }
+  const int64_t nnz = indptr[n];
+  // row lengths of the scattered pattern, then their offsets
+  std::vector<int64_t> ptr(n + 1, 0);
+  for (int i = 0; i < n; ++i) {
+    ptr[iperm[i] + 1] += indptr[i + 1] - indptr[i] + 1;
+    for (int64_t p = indptr[i]; p < indptr[i + 1]; ++p) {
+      int j = indices[p];
+      if (j < 0 || j >= n) return -1;
+      ++ptr[iperm[j] + 1];
+    }
+  }
+  for (int r = 0; r < n; ++r) ptr[r + 1] += ptr[r];
+  // scatter (row, col), (col, row) and the diagonal, unordered in each row
+  std::vector<int> cols(2 * nnz + n);
+  std::vector<int64_t> pos(ptr.begin(), ptr.end() - 1);
+  for (int i = 0; i < n; ++i) {
+    int r = iperm[i];
+    cols[pos[r]++] = r;
+    for (int64_t p = indptr[i]; p < indptr[i + 1]; ++p) {
+      int c = iperm[indices[p]];
+      cols[pos[r]++] = c;
+      cols[pos[c]++] = r;
+    }
+  }
+  // transpose: rows visited in ascending order leave each row sorted
+  std::copy(ptr.begin(), ptr.end() - 1, pos.begin());
+  for (int r = 0; r < n; ++r)
+    for (int64_t p = ptr[r]; p < ptr[r + 1]; ++p) {
+      int c = cols[p];
+      if (pos[c] == ptr[c] || out_indices[pos[c] - 1] != r)
+        out_indices[pos[c]++] = r;
+    }
+  // close the gaps the repeats left
+  int64_t q = 0;
+  out_indptr[0] = 0;
+  for (int r = 0; r < n; ++r) {
+    for (int64_t p = ptr[r]; p < pos[r]; ++p) out_indices[q++] = out_indices[p];
+    out_indptr[r + 1] = q;
+  }
+  return q;
+}
 
 void* slt_analyze(int n, const int* indptr, const int* indices,
                   int relax_small, double relax_frac) {

@@ -281,23 +281,6 @@ def _pattern_key(mat):
     return (int(mat.nnz), int(mat.indices[::step].to(torch.int64).sum()))
 
 
-def _symmetrized_pattern(indptr, indices, n, perm):
-    """Permuted pattern of A + A^T + I as (indptr, indices), canonical CSR."""
-    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
-    cols = indices.astype(np.int64)
-    iperm = np.empty(n, dtype=np.int64)
-    iperm[perm] = np.arange(n)
-    pr = np.concatenate([iperm[rows], iperm[cols], np.arange(n)])
-    pc = np.concatenate([iperm[cols], iperm[rows], np.arange(n)])
-    key = pr * n + pc
-    key = np.unique(key)
-    pr, pc = key // n, key % n
-    out_indptr = np.zeros(n + 1, dtype=np.int32)
-    np.add.at(out_indptr, pr + 1, 1)
-    out_indptr = np.cumsum(out_indptr).astype(np.int32)
-    return out_indptr, pc.astype(np.int32)
-
-
 def _below_index(nsuper, n, rows_ptr, rows, nc_arr):
     """Global search structure over all below-pivot frontal rows: a single
     sorted key array (supernode-major, row-minor) enabling ONE vectorized
@@ -335,11 +318,16 @@ def analyze(mat, ordering: str = "auto", dims=None,
     ``perm``: explicit elimination order (overrides ``ordering``) — used to
     re-derive a schedule from a carried-over symbolic artifact.
     ``engine``: "native" (the host library) or "python" (the plain
-    version, ``solve/symbolic_py.py``; small problems and tests only).
+    version, ``solve/symbolic_py.py``; small problems and tests only), for
+    the symmetrized pattern and the symbolic analysis.
     Host work on numpy arrays: the matrix's pattern is copied to the host
     once.  The call is the span ``slt.mf.analyze``, its stages the spans
     ``slt.mf.analyze.order``, ``.symmetrize``, ``.symbolic``, ``.schedule``
-    and ``.maps``, whose host seconds the result's ``stats`` records."""
+    and ``.maps``, whose host seconds the result's ``stats`` records.  The
+    pattern of A + A^T + I is built in ``symmetrize`` under the ordering,
+    and in ``order`` unpermuted, as the span
+    ``slt.mf.analyze.order.symmetrize``, where a general-graph ordering
+    needs it."""
     with annotate("slt.mf.analyze"):
         return _analyze(mat, ordering, dims, relax_small, relax_frac, perm,
                         engine)
@@ -357,8 +345,10 @@ def _stage(stats: dict, name: str):
 
 def _analyze(mat, ordering, dims, relax_small, relax_frac, perm, engine):
     from sparse_linear_tpu_torch.solve import ordering as ord_mod
-    from sparse_linear_tpu_torch.solve.symbolic_py import python_symbolic
-    from sparse_linear_tpu_torch.utils.native import native_symbolic
+    from sparse_linear_tpu_torch.solve.symbolic_py import (python_symbolic,
+                                                           python_symmetrize)
+    from sparse_linear_tpu_torch.utils.native import (native_symbolic,
+                                                      native_symmetrize)
 
     mat = trim(mat.tocsr())
     n = mat.shape[0]
@@ -366,6 +356,8 @@ def _analyze(mat, ordering, dims, relax_small, relax_frac, perm, engine):
         raise ValueError("analyze: matrix must be square")
     if engine not in ("native", "python"):
         raise ValueError(f"unknown symbolic engine: {engine!r}")
+    native = engine == "native"
+    symmetrize = native_symmetrize if native else python_symmetrize
     indptr = _np(mat.indptr).astype(np.int64)
     indices = _np(mat.indices)
     stats = {}
@@ -377,8 +369,9 @@ def _analyze(mat, ordering, dims, relax_small, relax_frac, perm, engine):
             if ordering in ("nd", "nested-dissection") and dims is not None:
                 perm = ord_mod.nested_dissection_grid(dims)
             elif ordering in ("nd", "nested-dissection", "rcm", "amd"):
-                sp_ip, sp_ix = _symmetrized_pattern(
-                    indptr, indices, n, np.arange(n, dtype=np.int32))
+                with annotate("slt.mf.analyze.order.symmetrize"):
+                    sp_ip, sp_ix = symmetrize(
+                        n, indptr, indices, np.arange(n, dtype=np.int32))
                 fn = {"rcm": ord_mod.rcm, "amd": ord_mod.amd}.get(
                     ordering, ord_mod.nested_dissection)
                 perm = fn(sp_ip, sp_ix, n)
@@ -391,9 +384,9 @@ def _analyze(mat, ordering, dims, relax_small, relax_frac, perm, engine):
             raise ValueError(f"analyze: perm must have shape ({n},)")
 
     with _stage(stats, "symmetrize"):
-        ip, ix = _symmetrized_pattern(indptr, indices, n, perm)
+        ip, ix = symmetrize(n, indptr, indices, perm)
     with _stage(stats, "symbolic"):
-        symbolic = native_symbolic if engine == "native" else python_symbolic
+        symbolic = native_symbolic if native else python_symbolic
         sym = symbolic(n, ip, ix, relax_small, relax_frac)
 
     with _stage(stats, "schedule"):

@@ -1,15 +1,37 @@
-"""The plain Python version of the native symbolic analysis.
+"""The plain Python version of the native symbolic analysis and of the
+symmetrized pattern it reads.
 
-A copy of :mod:`sparse_linear_tpu.solve.symbolic_py`, with the contract of
-``utils.native.native_symbolic``.  Correct but unvectorized: it runs only
-when asked for (``multifrontal.analyze(..., engine="python")``), and the
-tests hold the native engine to its output."""
+``python_symbolic`` is a copy of :mod:`sparse_linear_tpu.solve.symbolic_py`,
+with the contract of ``utils.native.native_symbolic``; ``python_symmetrize``
+has the contract of ``utils.native.native_symmetrize``.  Correct but
+unvectorized: they run only when asked for
+(``multifrontal.analyze(..., engine="python")``), and the tests hold the
+native engine to their output."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["python_symbolic"]
+__all__ = ["python_symbolic", "python_symmetrize"]
+
+
+def python_symmetrize(n, indptr, indices, perm):
+    """The pattern of P (A + A^T + I) P^T as canonical CSR ``(indptr int64,
+    indices int32)``, P sending node ``perm[k]`` to ``k``."""
+    iperm = [0] * n
+    for k, v in enumerate(perm):
+        iperm[int(v)] = k
+    rows = [{r} for r in range(n)]
+    for i in range(n):
+        for p in range(int(indptr[i]), int(indptr[i + 1])):
+            r, c = iperm[i], iperm[int(indices[p])]
+            rows[r].add(c)
+            rows[c].add(r)
+    out_indptr = np.zeros(n + 1, dtype=np.int64)
+    out_indptr[1:] = np.cumsum([len(row) for row in rows])
+    out_indices = np.array([c for row in rows for c in sorted(row)],
+                           dtype=np.int32)
+    return out_indptr, out_indices
 
 
 def python_symbolic(n, indptr, indices, relax_small=16, relax_frac=0.25):

@@ -1,4 +1,5 @@
-"""Build and load the port's host library: symbolic analysis, AMD and ND.
+"""Build and load the port's host library: the symmetrized pattern, symbolic
+analysis, AMD and ND.
 
 Counterpart of :mod:`sparse_linear_tpu.utils.native`.  The port keeps its
 own copy of the C++ sources in ``csrc/host/`` and builds them itself with
@@ -30,7 +31,7 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["GXX_FLAGS", "library_path", "load", "native_amd", "native_nd",
-           "native_symbolic", "sources"]
+           "native_symbolic", "native_symmetrize", "sources"]
 
 _PKG = Path(__file__).resolve().parent.parent
 GXX_FLAGS = ("-O2", "-shared", "-fPIC")
@@ -79,6 +80,9 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    lib.slt_symmetrize.restype = ctypes.c_int64
+    lib.slt_symmetrize.argtypes = [ctypes.c_int, i64p, i32p, i32p, i64p,
+                                   i32p]
     lib.slt_analyze.restype = ctypes.c_void_p
     lib.slt_analyze.argtypes = [ctypes.c_int, i32p, i32p, ctypes.c_int,
                                 ctypes.c_double]
@@ -93,6 +97,32 @@ def load() -> ctypes.CDLL:
     lib.slt_nd.restype = ctypes.c_int
     lib.slt_nd.argtypes = [ctypes.c_int, i64p, i32p, ctypes.c_int, i32p]
     return lib
+
+
+def native_symmetrize(n, indptr, indices, perm):
+    """The pattern of P (A + A^T + I) P^T as canonical CSR ``(indptr int64,
+    indices int32)``, P sending node ``perm[k]`` to ``k``: each row's
+    columns sorted and unique, its diagonal present.  ``indptr`` and
+    ``indices`` are A's CSR pattern."""
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    perm = np.ascontiguousarray(perm, dtype=np.int32)
+    n = int(n)
+    if indptr.shape != (n + 1,) or perm.shape != (n,):
+        raise ValueError(f"native_symmetrize: indptr must have shape "
+                         f"({n + 1},) and perm ({n},)")
+    if (indptr[0] != 0 or indices.shape[0] != indptr[-1]
+            or np.any(np.diff(indptr) < 0)):
+        raise ValueError("native_symmetrize: indptr must rise from 0 to "
+                         "the number of indices")
+    out_indptr = np.empty(n + 1, dtype=np.int64)
+    out_indices = np.empty(2 * int(indptr[-1]) + n, dtype=np.int32)
+    nnz = load().slt_symmetrize(n, indptr, indices, perm, out_indptr,
+                                out_indices)
+    if nnz < 0:
+        raise ValueError("native_symmetrize: perm is not a permutation of "
+                         f"range({n}) or an index lies outside it")
+    return out_indptr, out_indices[:nnz]
 
 
 def native_amd(n, indptr, indices):

@@ -17,6 +17,9 @@ Every operator shares the 8**2 five-point pattern (or a perturbed copy of
 its values), so the JAX package compiles few programs.
 """
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -31,6 +34,7 @@ from sparse_linear_tpu.utils.grids import laplacian_1d, poisson_2d  # noqa: E402
 from sparse_linear_tpu_torch.interop import jax_state  # noqa: E402
 from sparse_linear_tpu_torch.solve import api  # noqa: E402
 from sparse_linear_tpu_torch.solve import multifrontal as mf  # noqa: E402
+from spbench.operators import mesh2d  # noqa: E402
 from tests.torch_parity import np_of, permuted_poisson, to_port  # noqa: E402
 
 G = 8
@@ -135,19 +139,8 @@ def jax_mf_arrays(jf):
 # ------------------------------------------------------------- schedule
 
 
-ORDERINGS = {"natural": {"ordering": "natural"}, "rcm": {"ordering": "rcm"},
-             "nd_grid": {"dims": (10, 10)}, "amd": {"ordering": "amd"},
-             "nd_general": {"ordering": "nd"}}
-
-
-@pytest.mark.parametrize("name", sorted(ORDERINGS))
-def test_schedule_identical(name):
-    """Bucket for bucket, map for map: the same schedule as the JAX
-    package's analyze, on a pattern with no structure to find."""
-    ja = permuted_poisson(10, np.float64)
-    a = to_port(ja)
-    js = jmf.analyze(ja, **ORDERINGS[name])
-    s = mf.analyze(a, **ORDERINGS[name])
+def _assert_same_schedule(s, js):
+    """Bucket for bucket, map for map."""
     np.testing.assert_array_equal(s.perm, js.perm)
     assert s.pattern_key == js.pattern_key
     assert s.relax == js.relax
@@ -167,6 +160,46 @@ def test_schedule_identical(name):
     for bidx, am in s.a_entry_maps.items():
         for key in ("src", "slot", "r", "c"):
             np.testing.assert_array_equal(am[key], js.a_entry_maps[bidx][key])
+
+
+def _sup_start(sym):
+    """First column of every supernode, from the buckets' pivot counts."""
+    nc = np.zeros(sym.schedule["nsuper"], np.int64)
+    for b in sym.schedule["flat"]:
+        nc[b["sup_ids"]] = b["ns_real"]
+    return np.concatenate([[0], np.cumsum(nc)])
+
+
+ORDERINGS = {"natural": {"ordering": "natural"}, "rcm": {"ordering": "rcm"},
+             "nd_grid": {"dims": (10, 10)}, "amd": {"ordering": "amd"},
+             "nd_general": {"ordering": "nd"}}
+
+
+@pytest.mark.parametrize("name", sorted(ORDERINGS))
+def test_schedule_identical(name):
+    """Bucket for bucket, map for map: the same schedule as the JAX
+    package's analyze, on a pattern with no structure to find."""
+    ja = permuted_poisson(10, np.float64)
+    a = to_port(ja)
+    js = jmf.analyze(ja, **ORDERINGS[name])
+    s = mf.analyze(a, **ORDERINGS[name])
+    _assert_same_schedule(s, js)
+
+
+def test_mesh_schedule_identical():
+    """A few-thousand-node mesh of ``fem2d-newmesh-f64``, no dims: the
+    port's AMD on its native symmetrized pattern gives the JAX package's
+    perm, supernodes and schedule."""
+    cfg = json.loads((Path(__file__).resolve().parent.parent / "spbench"
+                      / "configs" / "fem2d-newmesh-f64.json").read_text())
+    m = mesh2d.mesh(3000, cfg["aspect"], cfg["jitter"],
+                    torch.Generator().manual_seed(3), "cpu")
+    rows, cols, vals = (t.numpy() for t in mesh2d.triples(m))
+    ja = trim(sl.from_triples((m.n, m.n), rows, cols, vals).tocsr())
+    js = jmf.analyze(ja)
+    s = mf.analyze(to_port(ja))
+    np.testing.assert_array_equal(_sup_start(s), _sup_start(js))
+    _assert_same_schedule(s, js)
 
 
 def test_python_engine_gives_the_same_schedule():

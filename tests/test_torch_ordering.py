@@ -6,8 +6,13 @@ the port keeps its own copy of the numpy functions and of the C++ sources,
 which it builds itself (``sparse_linear_tpu_torch/utils/native.py``).  The
 same pattern must give exactly the same permutation and exactly the same
 supernode forest.  The port's plain Python engine (``solve/symbolic_py``)
-is held to its native one the same way.
+is held to its native one the same way, and the port's native pattern of
+P (A + A^T + I) P^T to the JAX package's numpy one, bit for bit.
 """
+
+import json
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -23,8 +28,10 @@ from sparse_linear_tpu.utils.grids import poisson_2d  # noqa: E402
 from sparse_linear_tpu_torch.solve import ordering as pord  # noqa: E402
 from sparse_linear_tpu_torch.solve.symbolic_py import (  # noqa: E402
     python_symbolic,
+    python_symmetrize,
 )
 from sparse_linear_tpu_torch.utils import native as pnative  # noqa: E402
+from spbench.operators import mesh2d  # noqa: E402
 from tests.torch_parity import permuted_poisson  # noqa: E402
 
 
@@ -148,3 +155,110 @@ def test_host_library_is_keyed_by_hash():
     assert path.is_file()
     assert [p.name for p in pnative.sources()] == ["ordering.cpp",
                                                    "symbolic.cpp"]
+
+
+def _csr_of(n, rows, cols, sort_cols=True):
+    """CSR pattern of (rows, cols): rows in order, each row's columns
+    sorted and unique, or with ``sort_cols=False`` left as given, repeats
+    and all."""
+    rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
+    if sort_cols:
+        key = np.unique(rows * n + cols)
+        rows, cols = key // n, key % n
+    else:
+        order = np.argsort(rows, kind="stable")
+        rows, cols = rows[order], cols[order]
+    ip = np.zeros(n + 1, np.int64)
+    np.add.at(ip, rows + 1, 1)
+    return np.cumsum(ip), cols.astype(np.int32), n
+
+
+def _upper_triangular(n=60, seed=4):
+    rng = np.random.default_rng(seed)
+    r, c = np.triu_indices(n, k=1)
+    keep = rng.random(r.size) < 0.1
+    return _csr_of(n, r[keep], c[keep])
+
+
+def _empty_rows(n=40, seed=5):
+    """Half the rows hold nothing; the entries land anywhere."""
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(np.arange(0, n, 2), 70)
+    return _csr_of(n, rows, rng.integers(0, n, 70))
+
+
+def _mesh_triples(sort_cols):
+    """The pattern of a small ``fem2d-newmesh-f64`` mesh's triples."""
+    cfg = json.loads((Path(__file__).resolve().parent.parent / "spbench"
+                      / "configs" / "fem2d-newmesh-f64.json").read_text())
+    m = mesh2d.mesh(600, cfg["aspect"], cfg["jitter"],
+                    torch.Generator().manual_seed(11), "cpu")
+    rows, cols, _ = mesh2d.triples(m)
+    return _csr_of(m.n, rows.numpy(), cols.numpy(), sort_cols)
+
+
+SYM_GRAPHS = {
+    **GRAPHS,
+    "upper_triangular_60": _upper_triangular,
+    "empty_rows_40": _empty_rows,
+    "one_node": lambda: (np.zeros(2, np.int64), np.zeros(0, np.int32), 1),
+    "one_node_diagonal": lambda: (np.array([0, 1], np.int64),
+                                  np.zeros(1, np.int32), 1),
+    "mesh": lambda: _mesh_triples(True),
+    "mesh_repeats_unsorted": lambda: _mesh_triples(False),
+}
+
+
+def _perm_of(kind, ip, ix, n):
+    if kind == "identity":
+        return np.arange(n, dtype=np.int32)
+    if kind == "random":
+        return np.random.default_rng(n).permutation(n).astype(np.int32)
+    sp_ip, sp_ix = j_sym_pattern(SimpleNamespace(shape=(n, n), indptr=ip,
+                                                 indices=ix),
+                                 np.arange(n, dtype=np.int32))
+    return jord.amd(sp_ip, sp_ix, n)
+
+
+@pytest.mark.parametrize("perm_kind", ["identity", "random", "amd"])
+@pytest.mark.parametrize("graph", sorted(SYM_GRAPHS))
+def test_native_symmetrize_equal_jax(graph, perm_kind):
+    ip, ix, n = SYM_GRAPHS[graph]()
+    perm = _perm_of(perm_kind, ip, ix, n)
+    got_ip, got_ix = pnative.native_symmetrize(n, ip, ix, perm)
+    want_ip, want_ix = j_sym_pattern(
+        SimpleNamespace(shape=(n, n), indptr=ip, indices=ix), perm)
+    assert got_ip.dtype == np.int64 and got_ix.dtype == np.int32
+    np.testing.assert_array_equal(got_ip, want_ip)
+    np.testing.assert_array_equal(got_ix, want_ix)
+
+
+@pytest.mark.parametrize("graph", sorted(SYM_GRAPHS))
+def test_python_symmetrize_equal_native(graph):
+    ip, ix, n = SYM_GRAPHS[graph]()
+    perm = _perm_of("random", ip, ix, n)
+    got_ip, got_ix = python_symmetrize(n, ip, ix, perm)
+    want_ip, want_ix = pnative.native_symmetrize(n, ip, ix, perm)
+    assert got_ip.dtype == np.int64 and got_ix.dtype == np.int32
+    np.testing.assert_array_equal(got_ip, want_ip)
+    np.testing.assert_array_equal(got_ix, want_ix)
+
+
+def test_native_symmetrize_rejects_bad_input():
+    ip, ix, n = GRAPHS["path_200"]()
+    perm = np.arange(n, dtype=np.int32)
+    perm[3] = 4
+    with pytest.raises(ValueError, match="not a permutation"):
+        pnative.native_symmetrize(n, ip, ix, perm)
+    bad = ix.copy()
+    bad[5] = n
+    with pytest.raises(ValueError, match="outside"):
+        pnative.native_symmetrize(n, ip, bad, np.arange(n))
+    with pytest.raises(ValueError, match="shape"):
+        pnative.native_symmetrize(n, ip, ix, np.arange(n - 1))
+    with pytest.raises(ValueError, match="rise from 0"):
+        pnative.native_symmetrize(n, ip, ix[:-1], np.arange(n))
+    falls = ip.copy()
+    falls[7] = falls[9]
+    with pytest.raises(ValueError, match="rise from 0"):
+        pnative.native_symmetrize(n, falls, ix, np.arange(n))

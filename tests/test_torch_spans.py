@@ -73,6 +73,19 @@ def test_analyze_opens_its_five_stages_inside_its_span():
         assert _ancestors(e)[0] == "slt.mf.analyze"
 
 
+def test_general_graph_order_opens_its_symmetrize_span():
+    """Without dims the order stage builds the unpermuted pattern of
+    A + A^T + I for AMD, as its own span inside the stage's."""
+    sym, events = _traced(lambda: mf.analyze(_op()))
+    assert sym.n == N * N
+    names = [e.name for e in events]
+    assert names == (["slt.mf.analyze", "slt.mf.analyze.order",
+                      "slt.mf.analyze.order.symmetrize"]
+                     + ANALYZE_STAGES[1:])
+    assert _ancestors(events[2])[:2] == ["slt.mf.analyze.order",
+                                         "slt.mf.analyze"]
+
+
 @pytest.mark.parametrize("kind", ["cholesky", "lu"])
 def test_factor_and_solve_open_one_level_span_per_tree_level(kind):
     a = _op()
